@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (gslam_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+  1. env: the card (nvidia-smi name and power limit), CUDA and nvcc
+     versions; builds the blend kernels from gslam_tpu_torch/csrc/.
+  2. kernels: each CUDA kernel against its plain PyTorch version on real
+     gathered rows of a 50k-splat map (T=300 tiles, M=512, and the 160x120
+     pyramid level, T=80), with times from CUDA events.
+  3. reference: track_frame on a small scene on the card and on the CPU
+     (plain blend); the two poses must agree.
+  4. tracking: the main path. BASELINE config 1 (N=50,000 splats, 320x240,
+     fx=280, tile_capacity=512): 10 ground-truth frames rendered by the
+     port, tracked chained with the default igs configuration; then one
+     frame with a 3-level pyramid. The kernels' launch counters must show
+     one forward per render and one forward + one backward per evaluation.
+The last line is {"ok": true, "device": {...}}; any failed phase exits
+non-zero before it. Imports torch and the port only (no JAX).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (dense): float32 outside the tensor cores, HBM3
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# Operations per (pixel, splat) pair, counted from csrc/blend.cu (one per
+# add, multiply, compare, select or transcendental): every pair evaluates the
+# Gaussian falloff; a pair that passes the alpha test ("ok") also does the
+# transmittance and accumulation work.
+FWD_OPS_PAIR, FWD_OPS_OK = 16, 16
+BWD_OPS_PAIR, BWD_OPS_OK = 32, 50
+
+W, H, FX, N_SPLATS, N_FRAMES = 320, 240, 280.0, 50_000, 10
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(phase, **payload):
+    print(json.dumps({"phase": phase, **payload}), flush=True)
+
+
+def make_map_fields(cap, n_live, rng, scale_lo=0.004, scale_hi=0.016,
+                    z_hi=4.5, opacity=1.5):
+    """The benchmark's synthetic map (bench.py `_make_map`), as numpy fields:
+    splats spread over the view frustum at depths 1.2-4.5."""
+    z = rng.uniform(1.2, z_hi, cap).astype(np.float32)
+    u = rng.uniform(0, W, cap).astype(np.float32)
+    v = rng.uniform(0, H, cap).astype(np.float32)
+    means = np.stack([(u - W / 2) * z / FX, (v - H / 2) * z / FX, z], -1)
+    alive = np.zeros(cap, bool)
+    alive[:n_live] = True
+    return dict(
+        means=means.astype(np.float32),
+        quats=rng.normal(size=(cap, 4)).astype(np.float32),
+        log_scales=np.log(rng.uniform(scale_lo, scale_hi, (cap, 3)) * z[:, None])
+        .astype(np.float32),
+        logit_opacities=np.full((cap,), opacity, np.float32),
+        logit_colors=(rng.normal(size=(cap, 3)).astype(np.float32) * 1.5),
+        log_uncertainties=np.zeros((cap,), np.float32),
+        alive=alive,
+    )
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Median of `reps` CUDA-event timings of fn() (ms)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_env():
+    import torch
+
+    from gslam_tpu_torch.ops import cuda_build
+
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    nvcc = cuda_build.nvcc_path()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    cuda_build.load("blend")
+    emit("env", nvidia_smi=smi, torch=torch.__version__, torch_cuda=torch.version.cuda,
+         nvcc=ver[-1] if ver else None, device=torch.cuda.get_device_name(0),
+         build_s=time.perf_counter() - t0)
+    return smi
+
+
+def gathered_rows(gmap, pose, K, width, height, cfg):
+    """Real blend inputs: the map's tile rows projected at `pose`."""
+    import torch
+
+    from gslam_tpu_torch.ops.rasterize import compute_bins
+    from gslam_tpu_torch.ops.track_fused import gather_tracking_tiles, tracking_rows
+
+    bins = compute_bins(gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
+                        pose[None], K[None], width, height, cfg, radius_scale=1.5)
+    with torch.no_grad():
+        tg = gather_tracking_tiles(gmap, bins)
+        return [x.contiguous() for x in tracking_rows(tg, pose, K, width, height, cfg)]
+
+
+def _err(a, b):
+    return (a.double() - b.double()).abs().max().item()
+
+
+def compare_and_time(rows, ts, tiles_x, cfg, gen):
+    """Kernel vs plain (float32, and float64 as the yardstick) for the blend
+    pair at one shape; times both."""
+    import torch
+
+    from gslam_tpu_torch.ops import blend
+
+    T, _, M = rows[0].shape
+    P = ts * ts
+    args = (cfg.alpha_cut, cfg.alpha_clamp, cfg.visibility_min_T)
+    # cotangents of a mean loss over the image's pixels
+    g = [torch.randn(T, P, 5, device="cuda", generator=gen) / (W * H),
+         torch.randn(T, P, device="cuda", generator=gen) / (W * H)]
+    rows64 = [x.double() for x in rows]
+    g64 = [x.double() for x in g]
+    res = {"T": T, "M": M}
+    pairs = [
+        ("blend_fwd",
+         lambda: blend.blend_fwd_cuda(*rows, ts, tiles_x, *args),
+         lambda: blend.blend_fwd_plain(*rows, ts, tiles_x, *args),
+         lambda: blend.blend_fwd_plain(*rows64, ts, tiles_x, *args)),
+        ("blend_bwd",
+         lambda: blend.blend_bwd_cuda(*rows, *g, ts, tiles_x, *args[:2]),
+         lambda: blend.blend_bwd_plain(*rows, *g, ts, tiles_x, *args[:2]),
+         lambda: blend.blend_bwd_plain(*rows64, *g64, ts, tiles_x, *args[:2])),
+    ]
+    for name, kern, plain, ref in pairs:
+        k_out, p_out, r_out = kern(), plain(), ref()
+        torch.cuda.synchronize()
+        max_abs, worst = 0.0, []
+        for k, p, r in zip(k_out, p_out, r_out):
+            check(bool(torch.isfinite(k.float()).all()), f"{name}: non-finite output")
+            if k.dtype == torch.int32:  # n_touched: T on visibility_min_T to rounding
+                diff = (k - p).abs()
+                check(diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3,
+                      f"{name}: n_touched differs beyond 1 pixel on 0.1% of slots")
+                continue
+            max_abs = max(max_abs, _err(k, p))
+            # beyond a relative 1e-4 (the kernel sums up to M log1p terms
+            # one by one in float32, 512 * 6e-8 = 3e-5; torch sums pairwise)
+            # the kernel may be at most twice as far from float64 as the
+            # float32 plain version, plus 1e-6 of the output's range
+            limit = 2 * _err(p, r) + 1e-6 * r.abs().max().item()
+            excess = ((k.double() - r).abs() - 1e-4 * r.abs()).max().item()
+            worst.append(excess / limit if limit > 0 else 0.0)
+            check(excess <= limit, f"{name}: error {excess} vs float64 above {limit}")
+        del k_out, p_out, r_out
+        res[name] = {
+            "max_abs_err": max_abs, "err_over_limit": max(worst),
+            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=20, warmup=1),
+        }
+    # the bound: this run's data decides how many pairs pass the alpha test
+    alpha = blend._alpha(rows[0], rows[1], rows[2], ts, tiles_x, *args[:2])
+    n_pairs, n_ok = T * P * M, int(alpha[4].sum().item())
+    del alpha
+    in_bytes = 4 * 11 * T * M
+    costs = {
+        "blend_fwd": (in_bytes + 4 * (T * P * 6 + T * M),
+                      FWD_OPS_PAIR * n_pairs + FWD_OPS_OK * n_ok),
+        "blend_bwd": (in_bytes + 4 * T * P * 6 + 4 * 11 * T * M,
+                      BWD_OPS_PAIR * n_pairs + BWD_OPS_OK * n_ok),
+    }
+    for name, (nbytes, ops) in costs.items():
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_F32_OPS
+        res[name].update(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes > t_ops else "operations")
+    res["pairs"], res["ok_pairs"] = n_pairs, n_ok
+    return res
+
+
+def phase_kernels(gmap, K, tcfg, smi):
+    import torch
+
+    from gslam_tpu_torch.tracking.track import _halve_K
+
+    cfg = tcfg.render
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eye = torch.eye(4, device="cuda")
+    full = compare_and_time(gathered_rows(gmap, eye, K, W, H, cfg), cfg.tile_size,
+                            -(-W // cfg.tile_size), cfg, gen)
+    # pyramid level 1 (160x120, 10x8 tiles) at the coarse-level capacity
+    cfg1 = dataclasses.replace(cfg, tile_capacity=min(cfg.tile_capacity * 4, 512))
+    half = compare_and_time(gathered_rows(gmap, eye, _halve_K(K), W // 2, H // 2, cfg1),
+                            cfg.tile_size, -(-(W // 2) // cfg.tile_size), cfg1, gen)
+    check(full["T"] == 300 and full["M"] == 512 and half["T"] == 80,
+          f"unexpected shapes {full['T']}x{full['M']}, {half['T']}")
+    emit("kernels_vs_plain", nvidia_smi=smi, full_res=full, pyramid_l1=half,
+         tolerance="float outputs: max(|kernel - fp64| - 1e-4 |fp64|) <= "
+                   "2 max|plain32 - fp64| + 1e-6 max|fp64|; n_touched within 1 "
+                   "on <= 0.1% of slots")
+    return full
+
+
+def phase_reference():
+    """The whole slice on the card against the CPU path on a small scene."""
+    import torch
+
+    from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig, track_frame
+
+    rng = np.random.default_rng(7)
+    w, h, n, fx = 96, 64, 400, 86.4
+    z = rng.uniform(2.0, 4.0, n).astype(np.float32)
+    u, v = rng.uniform(4, w - 4, n), rng.uniform(4, h - 4, n)
+    fields = dict(
+        means=np.stack([(u - w / 2) * z / fx, (v - h / 2) * z / fx, z], -1),
+        quats=rng.normal(size=(n, 4)), log_scales=np.log(rng.uniform(0.04, 0.12, (n, 3))),
+        logit_opacities=rng.uniform(-1.0, 3.0, n), logit_colors=rng.normal(size=(n, 3)),
+        log_uncertainties=rng.uniform(-0.5, 0.5, n), alive=np.ones(n, bool))
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    gt = rng.random((h, w, 3)).astype(np.float32) * 0.2
+    cfg = TrackingConfig(render=RenderConfig(tile_capacity=64), warmup_steps=3,
+                         lbfgs_max_iter=12, lbfgs_max_eval=12)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gmap = gaussian_map_from_numpy(fields, device=dev)
+        r = track_frame(gmap, np.eye(4, dtype=np.float32), np.zeros(2, np.float32),
+                        gt, K, w, h, cfg, device=dev)
+        out[dev] = (r.pose.cpu().numpy(), r.n_evals, r.rejected)
+    diff = float(np.abs(out["cpu"][0] - out["cuda"][0]).max())
+    emit("reference", pose_max_abs_diff=diff, n_evals=out["cuda"][1],
+         n_evals_cpu=out["cpu"][1], tolerance=2e-3)
+    check(out["cpu"][1:] == out["cuda"][1:], f"evals/rejection differ: {out}")
+    # the line search amplifies float32 rounding: the JAX tracker moves its
+    # pose up to 7.3e-4 under 1e-6 image noise (tests/test_torch_track.py)
+    check(diff <= 2e-3, f"card and CPU poses differ by {diff}")
+
+
+def phase_tracking(gmap, K, tcfg, xis, smi):
+    import torch
+
+    from gslam_tpu_torch.core.transforms import se3_exp
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.ops.rasterize import compute_bins
+    from gslam_tpu_torch.ops.track_fused import gather_tracking_tiles, render_tracking_fused
+    from gslam_tpu_torch.tracking.track import constant_motion_prior, track_frame
+
+    cfg = tcfg.render
+    poses, cur = [], torch.eye(4)
+    for i in range(N_FRAMES):
+        cur = se3_exp(torch.from_numpy(xis[i])) @ cur
+        poses.append(cur.cuda())
+
+    blend.reset_launches()
+    gts = []
+    with torch.no_grad():
+        for p in poses:  # ground truth: the port's fused render at each pose
+            bins = compute_bins(gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
+                                p[None], K[None], W, H, cfg)
+            rgb = render_tracking_fused(gather_tracking_tiles(gmap, bins), p, K, W, H,
+                                        cfg)[0]
+            gts.append(torch.clamp(rgb, 0.0, 1.0))
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) and g.shape == (H, W, 3) for g in gts),
+          "ground-truth renders not finite or misshaped")
+
+    est, exposure, frames = [], torch.zeros(2, device="cuda"), []
+    for i in range(N_FRAMES):
+        if not est:
+            prior = torch.eye(4, device="cuda")
+        elif len(est) == 1:
+            prior = est[-1]
+        else:
+            prior = constant_motion_prior(est[-2], est[-1])
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        r = track_frame(gmap, prior, exposure, gts[i], K, W, H, tcfg)
+        b.record()
+        b.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        check(bool(torch.isfinite(r.pose).all()) and bool(torch.isfinite(r.loss)),
+              f"frame {i}: non-finite result")
+        err = float(torch.linalg.norm(r.pose[:3, 3] - poses[i][:3, 3]))
+        frames.append(dict(frame=i, ms=a.elapsed_time(b), host_ms=host_ms,
+                           n_evals=r.n_evals, rejected=r.rejected, t_err_m=err,
+                           loss=float(r.loss)))
+        est.append(r.pose)
+        exposure = r.exposure
+    launches = dict(blend.launches)
+    n_evals = sum(f["n_evals"] for f in frames)
+    final_err = frames[-1]["t_err_m"]
+    emit("tracking", nvidia_smi=smi, frames=frames, sum_n_evals=n_evals,
+         launches=launches, final_t_err_m=final_err,
+         mean_ms=float(np.mean([f["ms"] for f in frames])))
+    check(not any(f["rejected"] for f in frames), "a frame was rejected")
+    check(final_err < 0.01, f"final translation error {final_err} m >= 1 cm")
+    check(launches["blend_fwd"] == n_evals + N_FRAMES,
+          f"forward launches {launches['blend_fwd']} != {n_evals} evals + {N_FRAMES}")
+    check(launches["blend_bwd"] == n_evals,
+          f"backward launches {launches['blend_bwd']} != {n_evals} evals")
+
+    # frame 1 again through the coarse-to-fine path (160x120 and 80x60
+    # levels above the full image), from the same prior as in the chain
+    pcfg = dataclasses.replace(tcfg, pyramid_levels=3)
+    blend.reset_launches()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    r = track_frame(gmap, est[0], torch.zeros(2), gts[1], K, W, H, pcfg)
+    b.record()
+    b.synchronize()
+    pyr = dict(ms=a.elapsed_time(b), n_evals=r.n_evals, rejected=r.rejected,
+               t_err_m=float(torch.linalg.norm(r.pose[:3, 3] - poses[1][:3, 3])),
+               launches=dict(blend.launches))
+    emit("tracking_pyramid3", **pyr)
+    check(bool(torch.isfinite(r.pose).all()) and not r.rejected, "pyramid frame failed")
+    check(pyr["launches"]["blend_fwd"] == r.n_evals == pyr["launches"]["blend_bwd"],
+          f"pyramid launches {pyr['launches']} != {r.n_evals} evals")
+    return launches
+
+
+def main() -> int:
+    if not (ROOT / "gslam_tpu_torch" / "csrc" / "blend.cu").is_file():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(gslam_tpu_torch/ is missing)", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    t_start = time.perf_counter()
+    smi = phase_env()
+    rng = np.random.default_rng(0)
+    gmap = gaussian_map_from_numpy(make_map_fields(N_SPLATS, N_SPLATS, rng),
+                                   device="cuda")
+    xis = rng.normal(scale=0.004, size=(N_FRAMES, 6)).astype(np.float32)
+    K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], device="cuda")
+    tcfg = TrackingConfig(render=RenderConfig(tile_capacity=512, pairs_per_gaussian=8))
+
+    full = phase_kernels(gmap, K, tcfg, smi)
+    phase_reference()
+    launches = phase_tracking(gmap, K, tcfg, xis, smi)
+
+    replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
+                "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
+    kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
+                    replaces=replaces[name], launches=launches[name],
+                    max_abs_err=full[name]["max_abs_err"], ms=full[name]["ms"],
+                    plain_ms=full[name]["plain_ms"], bound_ms=full[name]["bound_ms"],
+                    bound_by=full[name]["bound_by"], library_ms=None)
+               for name in ("blend_fwd", "blend_bwd")]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    emit("done", total_s=time.perf_counter() - t_start)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

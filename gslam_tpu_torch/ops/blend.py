@@ -1,0 +1,253 @@
+"""Per-tile alpha compositing (forward + analytic VJP): CUDA kernels and
+their plain PyTorch versions.
+
+Counterpart of gslam_tpu/ops/blend_pallas.py. Per tile of P = ts*ts pixels
+against its M depth-sorted splats (splat-minor rows):
+
+  forward:  sigma -> alpha -> T = exp(exclusive prefix-sum log1p(-alpha))
+            -> w = alpha T -> out = sum_m w feat;  t_final = exp(sum log1p(-alpha));
+            n_touched[m] = #pixels with ok and T > visibility_min_T
+  backward: dfeat = sum_p g_out w;  G = g_out . feat;  S = strict suffix of w G;
+            g_alpha = T G - S/(1-alpha) - g_tf t_final/(1-alpha) on live pairs,
+            chained to opacity, conic and 2D-mean cotangents per (tile, slot).
+
+The kernels live in gslam_tpu_torch/csrc/blend.cu. `blend_fwd_plain` and
+`blend_bwd_plain` write the same math with torch.cumsum over [T, P, M].
+The autograd function takes the plain versions for CPU tensors only; a
+CUDA tensor gets the kernel or an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gslam_tpu_torch.ops import cuda_build
+
+F_KERNEL = 5  # blend features the kernels take: rgb, depth, beta
+
+# Launches of each kernel in this process (the wrappers add one per launch).
+launches = {"blend_fwd": 0, "blend_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------- plain torch
+
+
+def _pixel_grid(T: int, ts: int, tiles_x: int, device) -> tuple:
+    """Pixel coordinates [T, P, 1] of every tile's ts*ts pixels."""
+    t = torch.arange(T, device=device)
+    k = torch.arange(ts * ts, device=device)
+    px = ((t % tiles_x) * ts)[:, None] + (k % ts)[None, :]
+    py = ((t // tiles_x) * ts)[:, None] + (k // ts)[None, :]
+    return px.to(torch.float32)[..., None], py.to(torch.float32)[..., None]
+
+
+def _alpha(xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp):
+    """[T, P, M] effective alpha and what its gradient needs."""
+    px, py = _pixel_grid(xy.shape[0], ts, tiles_x, xy.device)
+    dx = px - xy[:, 0:1, :]
+    dy = py - xy[:, 1:2, :]
+    ca, cb, cc = con[:, 0:1, :], con[:, 1:2, :], con[:, 2:3, :]
+    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    alpha_raw = op * torch.exp(-sigma)
+    ok = (sigma >= 0.0) & (alpha_raw >= alpha_cut)
+    alpha = torch.where(ok, torch.clamp(alpha_raw, max=alpha_clamp), 0.0)
+    return alpha, alpha_raw, dx, dy, ok, (ca, cb, cc)
+
+
+def _transmittance(alpha):
+    log1m = torch.log1p(-alpha)
+    T = torch.exp(torch.cumsum(log1m, dim=-1) - log1m)  # exclusive
+    t_final = torch.exp(torch.sum(log1m, dim=-1))  # [T, P]
+    return T, t_final
+
+
+def blend_fwd_plain(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t):
+    """Plain forward: out [T,P,F], t_final [T,P], n_touched [T,M] int32."""
+    alpha, _, _, _, ok, _ = _alpha(xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp)
+    T, t_final = _transmittance(alpha)
+    w = alpha * T
+    out = torch.einsum("tpm,tfm->tpf", w, feat)
+    touched = torch.sum(ok & (T > min_t), dim=1, dtype=torch.int32)
+    return out, t_final, touched
+
+
+def blend_bwd_plain(xy, con, op, feat, g_out, g_tf, ts, tiles_x, alpha_cut,
+                    alpha_clamp):
+    """Plain backward: dxy [T,2,M], dcon [T,3,M], dop [T,1,M], dfeat [T,F,M]."""
+    alpha, alpha_raw, dx, dy, ok, (ca, cb, cc) = _alpha(
+        xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp)
+    T, t_final = _transmittance(alpha)
+    w = alpha * T
+    dfeat = torch.einsum("tpf,tpm->tfm", g_out, w)
+    G = torch.einsum("tpf,tfm->tpm", g_out, feat)
+    wG = w * G
+    S = torch.sum(wG, dim=-1, keepdim=True) - torch.cumsum(wG, dim=-1)
+    one_m = 1.0 - alpha
+    g_alpha = T * G - S / one_m - (g_tf * t_final)[..., None] / one_m
+    g_alpha = torch.where(ok & (alpha_raw < alpha_clamp), g_alpha, 0.0)
+    g_sigma = -alpha * g_alpha
+    dop = torch.sum(g_alpha * alpha, dim=1, keepdim=True) / torch.clamp(op, min=1e-12)
+    dcon = torch.cat([
+        torch.sum(0.5 * dx * dx * g_sigma, dim=1, keepdim=True),
+        torch.sum(dx * dy * g_sigma, dim=1, keepdim=True),
+        torch.sum(0.5 * dy * dy * g_sigma, dim=1, keepdim=True),
+    ], dim=1)
+    # sigma depends on d = pix - xy: dsigma/dxy = -(ca dx + cb dy, cb dx + cc dy)
+    dxy = torch.cat([
+        torch.sum(-(ca * dx + cb * dy) * g_sigma, dim=1, keepdim=True),
+        torch.sum(-(cb * dx + cc * dy) * g_sigma, dim=1, keepdim=True),
+    ], dim=1)
+    return dxy, dcon, dop, dfeat
+
+
+# ---------------------------------------------------------------- CUDA kernels
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "blend_fwd": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    "blend_bwd": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
+}
+
+
+def _kernel(fn_name: str):
+    lib = cuda_build.load("blend")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = _SIGNATURES[fn_name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, x, shape, dtype, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(xy, con, op, feat, ts):
+    if xy.device.type != "cuda":
+        raise ValueError(f"the blend kernels take CUDA tensors, got {xy.device}")
+    if xy.dim() != 3:
+        raise ValueError(f"xy must be [T, 2, M], got {tuple(xy.shape)}")
+    T, _, M = xy.shape
+    P = ts * ts
+    if P % 32 or P > 1024:
+        raise ValueError(f"tile_size {ts}: the kernels need ts*ts a multiple of "
+                         "32 and at most 1024")
+    f32 = torch.float32
+    _check("xy", xy, (T, 2, M), f32, xy.device)
+    _check("con", con, (T, 3, M), f32, xy.device)
+    _check("op", op, (T, 1, M), f32, xy.device)
+    _check("feat", feat, (T, F_KERNEL, M), f32, xy.device)
+    return T, M, P
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def blend_fwd_cuda(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t):
+    """Launch blend_fwd; returns out [T,P,F], t_final [T,P], n_touched [T,M]."""
+    T, M, P = _check_rows(xy, con, op, feat, ts)
+    out = torch.empty((T, P, F_KERNEL), dtype=torch.float32, device=xy.device)
+    tf = torch.empty((T, P), dtype=torch.float32, device=xy.device)
+    touched = torch.empty((T, M), dtype=torch.int32, device=xy.device)
+    if T == 0:
+        return out, tf, touched
+    fn = _kernel("blend_fwd")
+    stream = torch.cuda.current_stream(xy.device).cuda_stream
+    err = fn(xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
+             out.data_ptr(), tf.data_ptr(), touched.data_ptr(),
+             T, M, ts, tiles_x, alpha_cut, alpha_clamp, min_t, stream)
+    _raise_on(err, "blend_fwd")
+    launches["blend_fwd"] += 1
+    return out, tf, touched
+
+
+def blend_bwd_cuda(xy, con, op, feat, g_out, g_tf, ts, tiles_x, alpha_cut,
+                   alpha_clamp):
+    """Launch blend_bwd; returns dxy, dcon, dop, dfeat (per tile and slot)."""
+    T, M, P = _check_rows(xy, con, op, feat, ts)
+    _check("g_out", g_out, (T, P, F_KERNEL), torch.float32, xy.device)
+    _check("g_tf", g_tf, (T, P), torch.float32, xy.device)
+    kw = dict(dtype=torch.float32, device=xy.device)
+    dxy = torch.empty((T, 2, M), **kw)
+    dcon = torch.empty((T, 3, M), **kw)
+    dop = torch.empty((T, 1, M), **kw)
+    dfeat = torch.empty((T, F_KERNEL, M), **kw)
+    if T == 0:
+        return dxy, dcon, dop, dfeat
+    fn = _kernel("blend_bwd")
+    stream = torch.cuda.current_stream(xy.device).cuda_stream
+    err = fn(xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
+             g_out.data_ptr(), g_tf.data_ptr(), dxy.data_ptr(), dcon.data_ptr(),
+             dop.data_ptr(), dfeat.data_ptr(), T, M, ts, tiles_x, alpha_cut,
+             alpha_clamp, stream)
+    _raise_on(err, "blend_bwd")
+    launches["blend_bwd"] += 1
+    return dxy, dcon, dop, dfeat
+
+
+# ---------------------------------------------------------------- dispatch
+
+
+def _route(x: torch.Tensor, plain, kernel):
+    """The plain version serves CPU tensors only; CUDA gets the kernel."""
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type == "cuda":
+        return kernel
+    raise ValueError(f"blend: unsupported device {x.device}")
+
+
+class _BlendFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xy, con, op, feat, ts, tiles_x, cfg_tuple):
+        alpha_cut, alpha_clamp, min_t = cfg_tuple
+        xy, con, op, feat = (x.contiguous() for x in (xy, con, op, feat))
+        fwd = _route(xy, blend_fwd_plain, blend_fwd_cuda)
+        out, tf, touched = fwd(xy, con, op, feat, ts, tiles_x, alpha_cut,
+                               alpha_clamp, min_t)
+        ctx.save_for_backward(xy, con, op, feat)
+        ctx.cfg = (ts, tiles_x, alpha_cut, alpha_clamp)
+        ctx.mark_non_differentiable(touched)
+        return out, tf, touched
+
+    @staticmethod
+    def backward(ctx, g_out, g_tf, _g_touched):
+        xy, con, op, feat = ctx.saved_tensors
+        ts, tiles_x, alpha_cut, alpha_clamp = ctx.cfg
+        bwd = _route(xy, blend_bwd_plain, blend_bwd_cuda)
+        dxy, dcon, dop, dfeat = bwd(
+            xy, con, op, feat, g_out.contiguous(), g_tf.contiguous(), ts,
+            tiles_x, alpha_cut, alpha_clamp)
+        return dxy, dcon, dop, dfeat, None, None, None
+
+
+def blend_tiles_rows(xy_rows, con_rows, op_rows, feat_rows, ts, tiles_x,
+                     cfg_tuple):
+    """Row-layout entry point: every per-splat quantity is splat-minor.
+
+    Args:
+      xy_rows [T, 2, M], con_rows [T, 3, M], op_rows [T, 1, M] (0 for invalid
+      slots), feat_rows [T, F, M]; cfg_tuple = (alpha_cut, alpha_clamp,
+      visibility_min_T).
+    Returns:
+      out [T, P, F], t_final [T, P], n_touched [T, M] (int32).
+    """
+    return _BlendFn.apply(xy_rows, con_rows, op_rows, feat_rows, ts, tiles_x,
+                          tuple(float(c) for c in cfg_tuple))

@@ -1,0 +1,270 @@
+"""Per-frame camera tracking against a frozen Gaussian map.
+
+Counterpart of gslam_tpu/tracking/track.py for the default configuration
+(method="igs", fused=True): the pose delta (Zhou-6D rotation +
+translation) and the affine exposure pair are packed into one 11-vector
+and refined by Adam warm-up steps followed by L-BFGS with strong-Wolfe line
+search. Every loss evaluation renders the frame through the fused tracking
+render (per-tile projection + the CUDA blend kernels on the card). The
+objective is the uncertainty-weighted 'active-nerf' photometric loss with
+an optional alpha-masked expected-depth L1.
+
+Not ported yet (they raise NotImplementedError): fused=False, which renders
+through the generic render_impl (ROADMAP A11), and method="gn"
+(Gauss-Newton, forward mode through the blend; ROADMAP A10, after A11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gslam_tpu_torch import resolve_device
+from gslam_tpu_torch.core.transforms import PoseDelta, invert_se3, pose_matrix
+from gslam_tpu_torch.mapping.gaussians import GaussianMap
+from gslam_tpu_torch.ops.losses import (
+    apply_exposure, masked_depth_l1, tracking_photometric,
+)
+from gslam_tpu_torch.ops.rasterize import RenderConfig, compute_bins
+from gslam_tpu_torch.ops.track_fused import (
+    gather_tracking_tiles, render_tracking_fused,
+)
+from gslam_tpu_torch.opt.lbfgs_compact import warmup_lbfgs_impl
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackingConfig:
+    method: str = "igs"  # 'igs' (L-BFGS); 'gn' is not ported yet
+    photometric_loss: str = "active-nerf"  # 'l1' | 'mse' | 'active-nerf'
+    pose_lr: float = 0.002
+    warmup_steps: int = 10
+    # up to 200 closure evaluations per frame, as the JAX tracker
+    lbfgs_max_iter: int = 160
+    lbfgs_max_eval: int = 200
+    lbfgs_history: int = 5
+    # divergence guard: a non-finite result or a per-frame translation
+    # delta above this bound (map units) falls back to the motion prior
+    max_step: float = 0.5
+    learn_exposure: bool = True
+    use_gt_depths: bool = False
+    depth_loss_weight: float = 1.0
+    depth_alpha_min: float = 0.5
+    bin_radius_margin: float = 1.5  # footprint inflation for bin reuse
+    fused: bool = True  # per-tile fused projection + blend (the only path ported)
+    # coarse-to-fine pyramid: level l runs the same refinement on a
+    # 2^l-downsampled image, coarsest first; 1 = flat
+    pyramid_levels: int = 1
+    # per-level L-BFGS eval budgets, coarse -> fine
+    pyramid_evals: tuple = (100, 70, 50)
+    render: RenderConfig = RenderConfig()
+
+
+class TrackResult(NamedTuple):
+    pose: torch.Tensor  # [4, 4] refined world-to-camera
+    exposure: torch.Tensor  # [2]
+    loss: torch.Tensor  # [] final photometric loss
+    n_evals: int  # loss/grad evaluations used
+    rejected: bool  # guard fired; pose is the fallback prior
+
+
+def constant_motion_prior(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
+    """Constant-velocity pose prediction: b @ inv(a) @ b."""
+    return (pose_b @ invert_se3(pose_a)) @ pose_b
+
+
+def _check_supported(cfg: TrackingConfig):
+    if cfg.method != "igs":
+        raise NotImplementedError(
+            f"tracking method {cfg.method!r} is not ported yet (ROADMAP A10: "
+            "Gauss-Newton needs forward mode through the blend, after A11)")
+    if not cfg.fused:
+        raise NotImplementedError(
+            "fused=False renders through the generic render_impl, which is "
+            "not ported yet (ROADMAP A11)")
+
+
+def track_frame_impl(
+    gmap: GaussianMap,
+    base_pose: torch.Tensor,  # [4, 4] initial world-to-camera guess
+    init_exposure: torch.Tensor,  # [2] seeded from the previous frame
+    gt_img: torch.Tensor,  # [H, W, 3]
+    K: torch.Tensor,  # [3, 3]
+    width: int,
+    height: int,
+    cfg: TrackingConfig = TrackingConfig(),
+    gt_depth: torch.Tensor | None = None,  # [H, W] for RGB-D mode
+) -> TrackResult:
+    """One level of refinement; all tensors lie on the map's device."""
+    _check_supported(cfg)
+    # bin tiles ONCE at the prior pose with inflated footprints and gather
+    # the pose-independent rows; each evaluation then only projects per
+    # (tile, slot) and blends
+    bins = compute_bins(
+        gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
+        base_pose[None], K[None], width, height, cfg.render,
+        radius_scale=cfg.bin_radius_margin,
+    )
+    tiles = gather_tracking_tiles(gmap, bins)
+    dev = gmap.means.device
+
+    def unpack(x):
+        pose = pose_matrix(PoseDelta(base_pose, x[:6], x[6:9]))
+        exposure = x[9:11] if cfg.learn_exposure else init_exposure
+        return pose, exposure
+
+    def loss_fn(x_host):
+        pose, exposure = unpack(x_host.to(dev))
+        rgb_img, depth_img, beta_img, alpha_img = render_tracking_fused(
+            tiles, pose, K, width, height, cfg.render)
+        rgb = apply_exposure(rgb_img, exposure)
+        loss = tracking_photometric(rgb, gt_img, beta_img, cfg.photometric_loss)
+        if cfg.use_gt_depths and gt_depth is not None:
+            # alpha-normalized expected depth, differentiable through both
+            d_hat = depth_img / torch.clamp(alpha_img, min=1e-3)
+            loss = loss + cfg.depth_loss_weight * masked_depth_l1(
+                d_hat[None], gt_depth[None],
+                alpha=alpha_img[None], alpha_min=cfg.depth_alpha_min,
+            )
+        return loss
+
+    # the optimizer's 11-vector lives on the host; every evaluation's render
+    # and gradient run on the map's device
+    x0 = torch.cat([torch.zeros(9), init_exposure.detach().cpu().to(torch.float32)])
+    x, f, n_evals = warmup_lbfgs_impl(
+        loss_fn, x0,
+        warmup_steps=cfg.warmup_steps,
+        max_iter=cfg.lbfgs_max_iter,
+        max_eval=cfg.lbfgs_max_eval,
+        history=cfg.lbfgs_history,
+        lr=cfg.pose_lr,
+        warmup_lr=cfg.pose_lr,
+    )
+    # divergence guard: keep the motion prior when the refinement left the
+    # photometric basin
+    ok = (
+        bool(torch.all(torch.isfinite(x)))
+        and bool(torch.isfinite(f))
+        and bool(torch.linalg.norm(x[6:9]) < cfg.max_step)
+    )
+    if not ok:
+        x, f = x0, torch.tensor(1e3)  # finite sentinel far above real losses
+    with torch.no_grad():
+        pose, exposure = unpack(x.to(dev))
+    return TrackResult(pose=pose, exposure=exposure, loss=f.to(dev),
+                       n_evals=n_evals, rejected=not ok)
+
+
+def _halve_image(img: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool over the leading [H, W, ...] axes."""
+    H, W = img.shape[0], img.shape[1]
+    rest = tuple(img.shape[2:])
+    return img.reshape((H // 2, 2, W // 2, 2) + rest).mean(dim=(1, 3))
+
+
+def _halve_K(K: torch.Tensor) -> torch.Tensor:
+    """Intrinsics of the 2x-downsampled image: fx' = fx/2, cx' = (cx-0.5)/2
+    (coarse pixel u' averages full-res pixels 2u' and 2u'+1)."""
+    s = torch.tensor([[0.5, 0, 0], [0, 0.5, 0], [0, 0, 1.0]], dtype=K.dtype,
+                     device=K.device)
+    off = torch.tensor([[0, 0, -0.25], [0, 0, -0.25], [0, 0, 0]], dtype=K.dtype,
+                       device=K.device)
+    return s @ K + off
+
+
+def track_frame_pyramid_impl(
+    gmap: GaussianMap,
+    base_pose: torch.Tensor,
+    init_exposure: torch.Tensor,
+    gt_img: torch.Tensor,
+    K: torch.Tensor,
+    width: int,
+    height: int,
+    cfg: TrackingConfig = TrackingConfig(),
+    gt_depth: torch.Tensor | None = None,
+) -> TrackResult:
+    """Coarse-to-fine refinement: each level is a full `track_frame_impl` at
+    a 2^l-downsampled resolution, seeded with the level above's pose and
+    exposure. `n_evals` sums over levels; `rejected` is True only when every
+    level's guard fired."""
+    _check_supported(cfg)
+    L = cfg.pyramid_levels
+    # only as many levels as the image size halves into
+    while L > 1 and (width % (1 << (L - 1)) or height % (1 << (L - 1))):
+        L -= 1
+    if L <= 1:
+        return track_frame_impl(gmap, base_pose, init_exposure, gt_img, K,
+                                width, height, cfg, gt_depth)
+
+    imgs, depths, Ks = [gt_img], [gt_depth], [K]
+    for _ in range(L - 1):
+        imgs.append(_halve_image(imgs[-1]))
+        depths.append(None if depths[-1] is None else _halve_image(depths[-1]))
+        Ks.append(_halve_K(Ks[-1]))
+
+    pose, exposure = base_pose, init_exposure
+    n_evals, all_rejected, loss = 0, True, None
+    for lvl in range(L - 1, -1, -1):  # coarsest first
+        s = 1 << lvl
+        evals = int(cfg.pyramid_evals[L - 1 - lvl])
+        rcfg = cfg.render
+        if lvl > 0:
+            # a coarse image has 4^l fewer tiles over the same splats: grow
+            # the tile budget to match, capped at 512 as in the reference
+            # (its cap is a TPU memory limit; the CUDA kernels take larger M,
+            # but the cap is kept so both packages blend the same lists)
+            cap = min(rcfg.tile_capacity * 4**lvl, 512)
+            rcfg = dataclasses.replace(rcfg, tile_capacity=cap)
+        cfg_l = dataclasses.replace(
+            cfg,
+            lbfgs_max_eval=evals,
+            lbfgs_max_iter=min(cfg.lbfgs_max_iter, evals),
+            # warm-up matters at the coarsest level (farthest prior)
+            warmup_steps=(cfg.warmup_steps if lvl == L - 1
+                          else min(cfg.warmup_steps, 3)),
+            pyramid_levels=1,
+            render=rcfg,
+        )
+        r = track_frame_impl(gmap, pose, exposure, imgs[lvl], Ks[lvl],
+                             width // s, height // s, cfg_l, depths[lvl])
+        pose, exposure = r.pose, r.exposure
+        n_evals += r.n_evals
+        all_rejected = all_rejected and r.rejected
+        loss = r.loss
+    return TrackResult(pose=pose, exposure=exposure, loss=loss,
+                       n_evals=n_evals, rejected=all_rejected)
+
+
+def track_frame(
+    gmap: GaussianMap,
+    base_pose,
+    init_exposure,
+    gt_img,
+    K,
+    width: int,
+    height: int,
+    cfg: TrackingConfig = TrackingConfig(),
+    gt_depth=None,
+    device: str | torch.device | None = None,
+) -> TrackResult:
+    """Public entry point: track one frame on `device` (CUDA by default).
+
+    Array arguments may be tensors or numpy arrays; they are moved to the
+    device. The map must already lie on it.
+    """
+    dev = resolve_device(device)
+    if gmap.means.device.type != dev.type:
+        raise ValueError(f"the map lies on {gmap.means.device}, tracking on {dev}")
+
+    def on(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32)
+        return torch.tensor(np.asarray(x, dtype=np.float32), device=dev)  # a copy
+
+    return track_frame_pyramid_impl(
+        gmap, on(base_pose), on(init_exposure), on(gt_img), on(K), width,
+        height, cfg, on(gt_depth))

@@ -1,0 +1,72 @@
+"""The PyTorch port stands alone: no module of gslam_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package; and an entry point given no
+device on a host without CUDA raises instead of running on the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "gslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "gslam_tpu")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_sources_found():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {"chip_smoke.py", "gslam_tpu_torch/ops/blend.py",
+            "gslam_tpu_torch/tracking/track.py"} <= names
+
+
+def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
+    from gslam_tpu_torch import resolve_device
+    from gslam_tpu_torch.mapping.gaussians import empty_map, gaussian_map_from_numpy
+    from gslam_tpu_torch.tracking.track import track_frame
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        empty_map(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gaussian_map_from_numpy({"means": np.zeros((2, 3))})
+    gmap = empty_map(4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        track_frame(gmap, np.eye(4), np.zeros(2), np.zeros((16, 16, 3)),
+                    np.eye(3), 16, 16)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No CUDA here: the smoke run must exit non-zero and print no result,
+    from the checkout and from a directory holding only the script."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", alone):
+        if torch.cuda.is_available() and script.parent == ROOT:
+            continue
+        proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                              text=True, timeout=300, cwd=script.parent)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
