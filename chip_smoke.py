@@ -8,7 +8,10 @@ Phases, one JSON line each:
      versions; builds the blend kernels from gslam_tpu_torch/csrc/.
   2. kernels: each CUDA kernel against its plain PyTorch version on real
      gathered rows of a 50k-splat map (T=300 tiles, M=512, and the 160x120
-     pyramid level, T=80), with times from CUDA events.
+     pyramid level, T=80), with times from CUDA events; for blend_bwd also
+     the share of (warp, splat) pairs its cull keeps, by the cull's plain
+     version (which must keep every pair with a pixel that passes the alpha
+     test), and its registers, shared memory and resident blocks per SM.
   3. reference: track_frame on a small scene on the card and on the CPU
      (plain blend); the two poses must agree.
   4. tracking: the main path. BASELINE config 1 (N=50,000 splats, 320x240,
@@ -108,6 +111,29 @@ def cuda_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def cuda_ms_back_to_back(fn, reps=20, warmup=3, rounds=5):
+    """Time per call of fn() (ms): in each of `rounds` rounds, `reps` calls
+    back to back between two CUDA events; the median over the rounds. The
+    host enqueues ahead of the card, so this leaves out the host's work
+    before each launch that cuda_ms's events also count."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
 def phase_env():
     import torch
 
@@ -144,13 +170,15 @@ def _err(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
-def compare_and_time(rows, ts, tiles_x, cfg, gen):
+def compare_and_time(rows, ts, tiles_x, cfg, gen, bwd=None):
     """Kernel vs plain (float32, and float64 as the yardstick) for the blend
-    pair at one shape; times both."""
+    pair at one shape; times both. `bwd` launches another build of the
+    backward kernel with blend_bwd_cuda's arguments (bench_blend_bwd.py)."""
     import torch
 
     from gslam_tpu_torch.ops import blend
 
+    bwd = bwd or blend.blend_bwd_cuda
     T, _, M = rows[0].shape
     P = ts * ts
     args = (cfg.alpha_cut, cfg.alpha_clamp, cfg.visibility_min_T)
@@ -166,7 +194,7 @@ def compare_and_time(rows, ts, tiles_x, cfg, gen):
          lambda: blend.blend_fwd_plain(*rows, ts, tiles_x, *args),
          lambda: blend.blend_fwd_plain(*rows64, ts, tiles_x, *args)),
         ("blend_bwd",
-         lambda: blend.blend_bwd_cuda(*rows, *g, ts, tiles_x, *args[:2]),
+         lambda: bwd(*rows, *g, ts, tiles_x, *args[:2]),
          lambda: blend.blend_bwd_plain(*rows, *g, ts, tiles_x, *args[:2]),
          lambda: blend.blend_bwd_plain(*rows64, *g64, ts, tiles_x, *args[:2])),
     ]
@@ -193,12 +221,12 @@ def compare_and_time(rows, ts, tiles_x, cfg, gen):
         del k_out, p_out, r_out
         res[name] = {
             "max_abs_err": max_abs, "err_over_limit": max(worst),
-            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=20, warmup=1),
+            "ms": cuda_ms(kern), "ms_back_to_back": cuda_ms_back_to_back(kern),
+            "plain_ms": cuda_ms(plain, reps=20, warmup=1),
         }
     # the bound: this run's data decides how many pairs pass the alpha test
-    alpha = blend._alpha(rows[0], rows[1], rows[2], ts, tiles_x, *args[:2])
-    n_pairs, n_ok = T * P * M, int(alpha[4].sum().item())
-    del alpha
+    ok = blend._alpha(*rows[:3], ts, tiles_x, cfg.alpha_cut, cfg.alpha_clamp)[4]
+    n_pairs, n_ok = T * P * M, int(ok.sum().item())
     in_bytes = 4 * 11 * T * M
     costs = {
         "blend_fwd": (in_bytes + 4 * (T * P * 6 + T * M),
@@ -211,23 +239,58 @@ def compare_and_time(rows, ts, tiles_x, cfg, gen):
         res[name].update(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes > t_ops else "operations")
     res["pairs"], res["ok_pairs"] = n_pairs, n_ok
+    # blend_bwd's per-warp cull, by its plain version: the (warp, splat)
+    # pairs it keeps must hold every pair with a pixel that passes the alpha
+    # test (the kernel's own outputs are held to float64 above)
+    keep = blend.warp_cull_plain(*rows[:3], ts, tiles_x, cfg.alpha_cut)
+    live = ok.reshape(T, P // 32, 32, M).any(2)
+    check(not bool((live & ~keep).any()), "blend_bwd: the plain cull drops a live pair")
+    res["blend_bwd"].update(cull_survival=keep.float().mean().item(),
+                            live_share=live.float().mean().item(),
+                            resources=bwd_resources(M, ts))
     return res
 
 
-def phase_kernels(gmap, K, tcfg, smi):
+def bwd_resources(M, ts):
+    """blend_bwd's kernel on this card at (M, ts): registers per thread,
+    dynamic shared memory per block, local (spill) bytes per thread and
+    resident blocks per SM (csrc/blend.cu blend_bwd_resources)."""
+    import ctypes
+
+    from gslam_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("blend").blend_bwd_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(M, ts, out)
+    check(err == 0, f"blend_bwd_resources: CUDA error {err}")
+    return dict(regs_per_thread=out[0], smem_bytes_per_block=out[1],
+                local_bytes_per_thread=out[2], blocks_per_sm=out[3])
+
+
+def kernel_shapes(gmap, K, tcfg):
+    """The blend's real inputs at the two shapes the main path gives it:
+    (rows, ts, tiles_x, cfg) at full resolution (T=300, M=512) and at
+    pyramid level 1 (160x120, 10x8 tiles, the coarse-level capacity)."""
     import torch
 
     from gslam_tpu_torch.tracking.track import _halve_K
 
     cfg = tcfg.render
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    ts = cfg.tile_size
     eye = torch.eye(4, device="cuda")
-    full = compare_and_time(gathered_rows(gmap, eye, K, W, H, cfg), cfg.tile_size,
-                            -(-W // cfg.tile_size), cfg, gen)
-    # pyramid level 1 (160x120, 10x8 tiles) at the coarse-level capacity
     cfg1 = dataclasses.replace(cfg, tile_capacity=min(cfg.tile_capacity * 4, 512))
-    half = compare_and_time(gathered_rows(gmap, eye, _halve_K(K), W // 2, H // 2, cfg1),
-                            cfg.tile_size, -(-(W // 2) // cfg.tile_size), cfg1, gen)
+    return [(gathered_rows(gmap, eye, K, W, H, cfg), ts, -(-W // ts), cfg),
+            (gathered_rows(gmap, eye, _halve_K(K), W // 2, H // 2, cfg1), ts,
+             -(-(W // 2) // ts), cfg1)]
+
+
+def phase_kernels(gmap, K, tcfg, smi):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full, half = (compare_and_time(*shape, gen) for shape in kernel_shapes(gmap, K, tcfg))
     check(full["T"] == 300 and full["M"] == 512 and half["T"] == 80,
           f"unexpected shapes {full['T']}x{full['M']}, {half['T']}")
     emit("kernels_vs_plain", nvidia_smi=smi, full_res=full, pyramid_l1=half,
@@ -392,6 +455,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=full[name]["max_abs_err"], ms=full[name]["ms"],
+                    ms_back_to_back=full[name]["ms_back_to_back"],
                     plain_ms=full[name]["plain_ms"], bound_ms=full[name]["bound_ms"],
                     bound_by=full[name]["bound_by"], library_ms=None)
                for name in ("blend_fwd", "blend_bwd")]

@@ -33,9 +33,22 @@
 // and recovers log T_m by subtraction in log space from its chunk's anchor
 // (never by dividing by 1 - alpha). Subtracting from the total alone would
 // carry an error of eps * |log T_final| into the front splats, which
-// dominate the gradient; the anchors keep the forward's accuracy. Per-splat sums over the 256 pixels are warp-shuffle trees,
-// then a fixed-order sum of the 8 warp partials in shared memory; a warp
-// with no contributing pixel for a splat skips its shuffles.
+// dominate the gradient; the anchors keep the forward's accuracy.
+// Two things cut the backward's work:
+// - Per-warp culling. At each chunk's start every lane tests one splat of
+//   the chunk against the warp's pixel rectangle (cull_keep: a necessary
+//   condition for the alpha test, with margins against float32 rounding);
+//   a ballot gives the mask and the warp visits only its set bits, in the
+//   sweep's order. A culled splat fails the alpha test at every pixel of the
+//   warp, so its pairs would have added exact zeros: culling changes no bit
+//   of a thread's sums.
+// - A reduce-scatter of the 11 per-splat channels (padded to 16): a butterfly
+//   of 16 shuffles leaves channel k's warp sum in lanes 2k and 2k+1, where 11
+//   shuffle trees took 55. A warp with no contributing pixel for a visited
+//   splat skips it; the warps' partials are then summed in a fixed order,
+//   skipping those a warp did not write (they are zeros). Deterministic.
+
+#include <cfloat>
 
 #include <cuda_runtime.h>
 
@@ -43,8 +56,12 @@ namespace {
 
 constexpr int kF = 5;         // blend features: rgb, depth, beta
 constexpr int kNC = kF + 6;   // bwd per-splat channels: dfeat[F], dop, dca, dcb, dcc, dx, dy
-constexpr int kChunk = 32;    // splats per backward flush of warp partials
+constexpr int kChunk = 32;    // splats per backward flush of warp partials (one per lane)
+constexpr int kNR = 16;       // kNC padded to the reduce-scatter's width
 constexpr unsigned kFull = 0xffffffffu;
+// cull_keep's bound on float32 rounding in sigma: |sigma_f - sigma| <=
+// kCullGamma * cond(Q) * sigma (a few units of 2^-24 per operation, doubled)
+constexpr float kCullGamma = 32.0f / 16777216.0f;
 
 struct Tile {
   const float* x; const float* y;
@@ -132,10 +149,90 @@ __global__ void blend_fwd_kernel(const float* __restrict__ xy, const float* __re
   for (int i = p; i < M; i += P) touched[(size_t)t * M + i] = s_touched[i];
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The warp's pixel rectangle: min/max of its lanes' coordinates (any tile
+// size whose ts*ts is a multiple of 32).
+struct Rect { float x0, x1, y0, y1; };
+
+__device__ Rect warp_rect(float px, float py) {
+  Rect r{px, px, py, py};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  return v;
+  for (int off = 16; off > 0; off >>= 1) {
+    r.x0 = fminf(r.x0, __shfl_xor_sync(kFull, r.x0, off));
+    r.x1 = fmaxf(r.x1, __shfl_xor_sync(kFull, r.x1, off));
+    r.y0 = fminf(r.y0, __shfl_xor_sync(kFull, r.y0, off));
+    r.y1 = fmaxf(r.y1, __shfl_xor_sync(kFull, r.y1, off));
+  }
+  return r;
+}
+
+// Whether splat m can pass the alpha test at some pixel of rectangle r; false
+// only where it provably cannot. With Q = [[a, b], [b, c]], sigma(d) =
+// d'Qd/2 and L = log(op / alpha_cut), a pass needs sigma <= L; for Q
+// positive definite that ellipse lies in |dx| <= sqrt(2 L c / det),
+// |dy| <= sqrt(2 L a / det). Margins: L gets 2e-5 + 1e-6 |L| (logf, expf and
+// the product op * exp); float32 sigma is within kCullGamma * cond(Q) *
+// sigma of the exact one, cond(Q) <= tr^2 / det, so L is divided by
+// 1 - q and det is lowered by the same factor (its own rounding is far
+// smaller); the extents get a relative 1e-5 (sqrt, division, distance).
+// Kept always: a conic that is not positive definite, or q > 1/4. Skipped
+// always: L < 0 (op < alpha_cut, including op = 0 and padding).
+// warp_cull_plain (ops/blend.py) is the same predicate in torch.
+__device__ __forceinline__ bool cull_keep(const Tile& tl, int m, const Rect& r,
+                                          float log_cut) {
+  const float L = logf(tl.op[m]) - log_cut;  // -inf for op = 0, NaN below
+  const float Lm = L + 2e-5f + 1e-6f * fabsf(L);
+  if (!(Lm >= 0.0f)) return false;
+  const float a = tl.ca[m], b = tl.cb[m], c = tl.cc[m];
+  const float det = fmaf(a, c, -b * b);
+  if (!(a > 0.0f && c > 0.0f && det > 0.0f)) return true;
+  const float q = kCullGamma * ((a + c) * (a + c) / det);
+  if (!(q <= 0.25f)) return true;
+  const float Le = Lm / (1.0f - q);
+  const float det_lo = det * (1.0f - q);
+  const float ex = sqrtf(2.0f * Le * c / det_lo) * (1.0f + 1e-5f);
+  const float ey = sqrtf(2.0f * Le * a / det_lo) * (1.0f + 1e-5f);
+  const float mx = tl.x[m], my = tl.y[m];
+  const float gx = fmaxf(fmaxf(r.x0 - mx, mx - r.x1), 0.0f);  // distance to r
+  const float gy = fmaxf(fmaxf(r.y0 - my, my - r.y1), 0.0f);
+  return gx <= ex && gy <= ey;
+}
+
+// The chunk's splats [base, base + 32) that the warp must visit: bit j for
+// splat base + j. Lane j tests splat base + j.
+__device__ __forceinline__ unsigned warp_live(const Tile& tl, int base, int M, int lane,
+                                              const Rect& r, float log_cut, bool cull) {
+  const int m = base + lane;
+  return __ballot_sync(kFull, m < M && (!cull || cull_keep(tl, m, r, log_cut)));
+}
+
+// One step of the reduce-scatter: v[0, 2H) -> v[0, H). A lane keeps the
+// upper half if bit 2H of its index is set, else the lower, and adds its
+// partner's (lane ^ 2H) copy of that half. H is a template constant so that
+// every index is one: with H a loop variable the compiler indexed the
+// registers at run time, behind a branch on `up` around every shuffle.
+template <int H>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[kNR], int lane) {
+  const bool up = lane & (2 * H);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, 2 * H);
+  }
+}
+
+// Reduce-scatter of 16 per-lane values over the warp: butterfly steps at
+// lane offsets 16, 8, 4, 2, then a last exchange at offset 1 completes the
+// sum; 8 + 4 + 2 + 1 + 1 = 16 shuffles. Returns the warp sum of value
+// lane >> 1 (lanes 2k and 2k+1 both hold value k). Each value's sum pairs
+// lanes in the same tree as a shfl_down tree, so it is bit-identical to one.
+__device__ __forceinline__ float warp_reduce_scatter16(float (&v)[kNR], int lane) {
+  static_assert(kNR == 16, "the steps below halve 16 values four times");
+  reduce_scatter_step<8>(v, lane);
+  reduce_scatter_step<4>(v, lane);
+  reduce_scatter_step<2>(v, lane);
+  reduce_scatter_step<1>(v, lane);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
 }
 
 __global__ void blend_bwd_kernel(const float* __restrict__ xy, const float* __restrict__ con,
@@ -154,12 +251,16 @@ __global__ void blend_bwd_kernel(const float* __restrict__ xy, const float* __re
   const int warp = p >> 5;
   const int n_warps = P >> 5;
   float* s_part = smem + (6 + kF) * M;  // [n_warps][kNC][kChunk]
-  float* s_anchor = s_part + n_warps * kNC * kChunk;  // [n_chunks][P]
+  unsigned* s_wrote = reinterpret_cast<unsigned*>(s_part + n_warps * kNC * kChunk);  // [n_warps]
+  float* s_anchor = reinterpret_cast<float*>(s_wrote + n_warps);  // [n_chunks][P]
   const Tile tl = stage_tile(smem, xy, con, op, feat, t, M);
   __syncthreads();
 
   const float px = (float)((t % tiles_x) * ts + p % ts);
   const float py = (float)((t / tiles_x) * ts + p / ts);
+  const Rect rect = warp_rect(px, py);
+  const bool cull = alpha_cut > 0.0f && alpha_cut <= FLT_MAX;  // else keep every splat
+  const float log_cut = logf(alpha_cut);
   float g[kF];
 #pragma unroll
   for (int f = 0; f < kF; ++f) g[f] = g_out[((size_t)t * P + p) * kF + f];
@@ -168,11 +269,15 @@ __global__ void blend_bwd_kernel(const float* __restrict__ xy, const float* __re
   // sweep 1 (front to back, the forward's order): the inclusive
   // log-transmittance at the end of every chunk, and the total
   float log_total = 0.0f;
-  for (int m = 0; m < M; ++m) {
-    float dx, dy, a_raw, alpha;
-    if (splat_alpha(tl, m, px, py, alpha_cut, alpha_clamp, dx, dy, a_raw, alpha))
-      log_total += log1pf(-alpha);
-    if ((m + 1) % kChunk == 0 || m == M - 1) s_anchor[(m / kChunk) * P + p] = log_total;
+  for (int base = 0; base < M; base += kChunk) {
+    for (unsigned live = warp_live(tl, base, M, lane, rect, log_cut, cull); live;
+         live &= live - 1) {
+      const int m = base + __ffs(live) - 1;  // lowest set bit first
+      float dx, dy, a_raw, alpha;
+      if (splat_alpha(tl, m, px, py, alpha_cut, alpha_clamp, dx, dy, a_raw, alpha))
+        log_total += log1pf(-alpha);
+    }
+    s_anchor[(base / kChunk) * P + p] = log_total;
   }
   const float t_final = expf(log_total);
   const float gtf_tf = gtf * t_final;
@@ -184,12 +289,17 @@ __global__ void blend_bwd_kernel(const float* __restrict__ xy, const float* __re
   for (int base = ((M - 1) / kChunk) * kChunk; base >= 0; base -= kChunk) {
     const int top = min(base + kChunk, M);
     float log_incl = s_anchor[(base / kChunk) * P + p];
-    for (int m = top - 1; m >= base; --m) {
+    unsigned wrote = 0;  // splats of the chunk whose partials this warp wrote
+    for (unsigned live = warp_live(tl, base, M, lane, rect, log_cut, cull); live;) {
+      const int j = 31 - __clz(live);  // highest set bit first
+      live &= ~(1u << j);
+      const int m = base + j;
       float dx, dy, a_raw, alpha;
       const bool ok = splat_alpha(tl, m, px, py, alpha_cut, alpha_clamp, dx, dy, a_raw, alpha);
-      float c[kNC];
+      if (!__any_sync(kFull, ok)) continue;
+      float c[kNR];
 #pragma unroll
-      for (int k = 0; k < kNC; ++k) c[k] = 0.0f;
+      for (int k = 0; k < kNR; ++k) c[k] = 0.0f;
       if (ok) {
         const float log1m = log1pf(-alpha);
         const float log_excl = log_incl - log1m;
@@ -216,18 +326,12 @@ __global__ void blend_bwd_kernel(const float* __restrict__ xy, const float* __re
         S += w * G;
         log_incl = log_excl;
       }
-      float* part = s_part + (size_t)warp * kNC * kChunk + (m - base);
-      if (__any_sync(kFull, ok)) {
-#pragma unroll
-        for (int k = 0; k < kNC; ++k) {
-          const float v = warp_sum(c[k]);
-          if (lane == 0) part[k * kChunk] = v;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kNC; ++k) part[k * kChunk] = 0.0f;
-      }
+      const float v = warp_reduce_scatter16(c, lane);
+      const int k = lane >> 1;
+      if (!(lane & 1) && k < kNC) s_part[((size_t)warp * kNC + k) * kChunk + j] = v;
+      wrote |= 1u << j;
     }
+    if (lane == 0) s_wrote[warp] = wrote;
     __syncthreads();
     // fixed-order sum of the warp partials, then write this chunk's splats
     for (int i = p; i < kNC * kChunk; i += P) {
@@ -236,7 +340,8 @@ __global__ void blend_bwd_kernel(const float* __restrict__ xy, const float* __re
       const int m = base + j;
       if (m >= top) continue;
       float v = 0.0f;
-      for (int w = 0; w < n_warps; ++w) v += s_part[((size_t)w * kNC + k) * kChunk + j];
+      for (int w = 0; w < n_warps; ++w)
+        if ((s_wrote[w] >> j) & 1u) v += s_part[((size_t)w * kNC + k) * kChunk + j];
       if (k < kF) {
         dfeat[((size_t)t * kF + k) * M + m] = v;
       } else if (k == kF) {
@@ -255,6 +360,15 @@ int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
+}
+
+size_t bwd_smem_bytes(int M, int ts) {
+  const int n_warps = ts * ts / 32;
+  const int n_chunks = (M + kChunk - 1) / kChunk;
+  return (size_t)(6 + kF) * M * sizeof(float) +               // the tile's splats
+         (size_t)n_warps * kNC * kChunk * sizeof(float) +      // warp partials
+         (size_t)n_warps * sizeof(unsigned) +                   // which partials were written
+         (size_t)n_chunks * ts * ts * sizeof(float);            // chunk anchors
 }
 
 }  // namespace
@@ -276,17 +390,33 @@ int blend_bwd(const float* xy, const float* con, const float* op, const float* f
               const float* g_out, const float* g_tf, float* dxy, float* dcon, float* dop,
               float* dfeat, int T, int M, int ts, int tiles_x, float alpha_cut,
               float alpha_clamp, void* stream) {
-  const int n_warps = ts * ts / 32;
-  const int n_chunks = (M + kChunk - 1) / kChunk;
-  const size_t smem = (size_t)(6 + kF) * M * sizeof(float) +
-                      (size_t)n_warps * kNC * kChunk * sizeof(float) +
-                      (size_t)n_chunks * ts * ts * sizeof(float);
+  const size_t smem = bwd_smem_bytes(M, ts);
   int err = set_smem((const void*)blend_bwd_kernel, smem);
   if (err) return err;
   blend_bwd_kernel<<<T, ts * ts, smem, (cudaStream_t)stream>>>(
       xy, con, op, feat, g_out, g_tf, dxy, dcon, dop, dfeat, M, ts, tiles_x, alpha_cut,
       alpha_clamp);
   return (int)cudaGetLastError();
+}
+
+// What blend_bwd's kernel takes on this card at (M, ts): out[0] registers per
+// thread, out[1] dynamic shared memory per block (bytes), out[2] local
+// memory per thread (bytes; spills), out[3] resident blocks per SM.
+int blend_bwd_resources(int M, int ts, int* out) {
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, (const void*)blend_bwd_kernel);
+  if (err) return err;
+  const size_t smem = bwd_smem_bytes(M, ts);
+  err = set_smem((const void*)blend_bwd_kernel, smem);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, blend_bwd_kernel,
+                                                           ts * ts, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)smem;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = blocks;
+  return err;
 }
 
 }  // extern "C"

@@ -12,7 +12,8 @@ against its M depth-sorted splats (splat-minor rows):
             chained to opacity, conic and 2D-mean cotangents per (tile, slot).
 
 The kernels live in gslam_tpu_torch/csrc/blend.cu. `blend_fwd_plain` and
-`blend_bwd_plain` write the same math with torch.cumsum over [T, P, M].
+`blend_bwd_plain` write the same math with torch.cumsum over [T, P, M];
+`warp_cull_plain` is the backward kernel's per-warp splat cull.
 The autograd function takes the plain versions for CPU tensors only; a
 CUDA tensor gets the kernel or an error.
 """
@@ -105,6 +106,43 @@ def blend_bwd_plain(xy, con, op, feat, g_out, g_tf, ts, tiles_x, alpha_cut,
         torch.sum(-(cb * dx + cc * dy) * g_sigma, dim=1, keepdim=True),
     ], dim=1)
     return dxy, dcon, dop, dfeat
+
+
+CULL_GAMMA = 32.0 / 2.0**24  # float32 rounding of sigma, per unit of cond(conic)
+
+
+def warp_cull_plain(xy, con, op, ts, tiles_x, alpha_cut):
+    """bool [T, P // 32, M]: whether warp w of tile t (pixels 32w..32w+31)
+    must visit splat m. blend_bwd's per-warp cull (csrc/blend.cu cull_keep),
+    in torch: False only where the alpha test provably fails at every pixel
+    of the warp's pixel rectangle, with the kernel's margins against float32
+    rounding. Used by the tests and chip_smoke.py, not by the blend."""
+    T, _, M = xy.shape
+    P = ts * ts
+    if not 0.0 < alpha_cut <= torch.finfo(torch.float32).max:
+        return torch.ones((T, P // 32, M), dtype=torch.bool, device=xy.device)
+    px, py = _pixel_grid(T, ts, tiles_x, xy.device)
+    px, py = px.reshape(T, P // 32, 32), py.reshape(T, P // 32, 32)
+    x0, x1 = px.amin(-1, keepdim=True), px.amax(-1, keepdim=True)  # [T, W, 1]
+    y0, y1 = py.amin(-1, keepdim=True), py.amax(-1, keepdim=True)
+    f32 = dict(dtype=torch.float32, device=xy.device)
+    xy, con, op = xy.float(), con.float(), op.float()
+    L = torch.log(op) - torch.log(torch.tensor(alpha_cut, **f32))  # [T, 1, M]
+    Lm = L + 2e-5 + 1e-6 * L.abs()
+    live = Lm >= 0.0  # False for op = 0 (-inf) and NaN
+    a, b, c = con[:, 0:1], con[:, 1:2], con[:, 2:3]
+    det = a * c - b * b
+    q = CULL_GAMMA * ((a + c) * (a + c) / det)
+    bounded = (a > 0) & (c > 0) & (det > 0) & (q <= 0.25)  # else keep
+    Le = Lm / (1.0 - q)
+    det_lo = det * (1.0 - q)
+    ex = torch.sqrt(2.0 * Le * c / det_lo) * (1.0 + 1e-5)
+    ey = torch.sqrt(2.0 * Le * a / det_lo) * (1.0 + 1e-5)
+    mx, my = xy[:, 0:1], xy[:, 1:2]
+    zero = torch.zeros((), **f32)
+    gx = torch.fmax(torch.fmax(x0 - mx, mx - x1), zero)  # fmax: as fmaxf
+    gy = torch.fmax(torch.fmax(y0 - my, my - y1), zero)
+    return live & (~bounded | ((gx <= ex) & (gy <= ey)))
 
 
 # ---------------------------------------------------------------- CUDA kernels

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA sources as plain-C shared libraries.
 
 Each source under gslam_tpu_torch/csrc/ is compiled by `nvcc` for sm_90a
-into gslam_tpu_torch/_build/, keyed by a hash of the source text, at its
-first use in a process, and loaded with ctypes. Nothing is built when a
-module is imported.
+into gslam_tpu_torch/_build/, keyed by a hash of the source text, of every
+local file it includes (`#include "..."`, followed recursively) and of the
+compiler flags, at its first use in a process, and loaded with ctypes.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,10 +38,32 @@ def nvcc_path() -> str:
                        "gslam_tpu_torch's kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of `src`, of the local files it includes (each once, found
+    beside the file that includes it) and of NVCC_FLAGS."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [src.resolve()], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(str(len(text)).encode() + b":" + text)
+        for inc in _LOCAL_INCLUDE.findall(text):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
     """Build csrc/<name>.cu if its hash has no library yet; return the path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(src)
     lib = BUILD / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
