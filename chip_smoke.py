@@ -8,10 +8,13 @@ Phases, one JSON line each:
      versions; builds the blend kernels from gslam_tpu_torch/csrc/.
   2. kernels: each CUDA kernel against its plain PyTorch version on real
      gathered rows of a 50k-splat map (T=300 tiles, M=512, and the 160x120
-     pyramid level, T=80), with times from CUDA events; for blend_bwd also
-     the share of (warp, splat) pairs its cull keeps, by the cull's plain
-     version (which must keep every pair with a pixel that passes the alpha
-     test), and its registers, shared memory and resident blocks per SM.
+     pyramid level, T=80), with times from CUDA events (`ms`, one launch
+     between two events; `ms_back_to_back`); for each kernel
+     also the share of (warp, splat) pairs its cull keeps with its warp
+     footprint, by the cull's plain version (which must keep every pair
+     with a pixel that passes the alpha test), and its registers, shared
+     memory and resident blocks per SM; for blend_fwd the depth segments
+     per tile that the card's rule gives.
   3. reference: track_frame on a small scene on the card and on the CPU
      (plain blend); the two poses must agree.
   4. tracking: the main path. BASELINE config 1 (N=50,000 splats, 320x240,
@@ -170,14 +173,16 @@ def _err(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
-def compare_and_time(rows, ts, tiles_x, cfg, gen, bwd=None):
+def compare_and_time(rows, ts, tiles_x, cfg, gen, fwd=None, bwd=None):
     """Kernel vs plain (float32, and float64 as the yardstick) for the blend
-    pair at one shape; times both. `bwd` launches another build of the
-    backward kernel with blend_bwd_cuda's arguments (bench_blend_bwd.py)."""
+    pair at one shape; times both. `fwd` and `bwd` launch another build of a
+    kernel with blend_fwd_cuda's or blend_bwd_cuda's arguments
+    (bench_blend.py)."""
     import torch
 
     from gslam_tpu_torch.ops import blend
 
+    fwd = fwd or blend.blend_fwd_cuda
     bwd = bwd or blend.blend_bwd_cuda
     T, _, M = rows[0].shape
     P = ts * ts
@@ -190,7 +195,7 @@ def compare_and_time(rows, ts, tiles_x, cfg, gen, bwd=None):
     res = {"T": T, "M": M}
     pairs = [
         ("blend_fwd",
-         lambda: blend.blend_fwd_cuda(*rows, ts, tiles_x, *args),
+         lambda: fwd(*rows, ts, tiles_x, *args),
          lambda: blend.blend_fwd_plain(*rows, ts, tiles_x, *args),
          lambda: blend.blend_fwd_plain(*rows64, ts, tiles_x, *args)),
         ("blend_bwd",
@@ -239,34 +244,39 @@ def compare_and_time(rows, ts, tiles_x, cfg, gen, bwd=None):
         res[name].update(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes > t_ops else "operations")
     res["pairs"], res["ok_pairs"] = n_pairs, n_ok
-    # blend_bwd's per-warp cull, by its plain version: the (warp, splat)
-    # pairs it keeps must hold every pair with a pixel that passes the alpha
-    # test (the kernel's own outputs are held to float64 above)
-    keep = blend.warp_cull_plain(*rows[:3], ts, tiles_x, cfg.alpha_cut)
-    live = ok.reshape(T, P // 32, 32, M).any(2)
-    check(not bool((live & ~keep).any()), "blend_bwd: the plain cull drops a live pair")
-    res["blend_bwd"].update(cull_survival=keep.float().mean().item(),
-                            live_share=live.float().mean().item(),
-                            resources=bwd_resources(M, ts))
+    # each kernel's per-warp cull, by its plain version, with the kernel's
+    # warp footprint: the (warp, splat) pairs it keeps must hold every pair
+    # with a pixel that passes the alpha test (the kernels' own outputs are
+    # held to float64 above)
+    S = blend.fwd_segments(T, M, ts)
+    for name, fp, launch in (("blend_fwd", blend.FWD_FOOTPRINT, S), ("blend_bwd", None, 1)):
+        keep = blend.warp_cull_plain(*rows[:3], ts, tiles_x, cfg.alpha_cut, footprint=fp)
+        live = ok[:, blend.warp_pixels(ts, fp, ok.device)].any(2)
+        check(not bool((live & ~keep).any()), f"{name}: the plain cull drops a live pair")
+        res[name].update(cull_survival=keep.float().mean().item(),
+                         live_share=live.float().mean().item(),
+                         resources=resources(name, M, ts, launch))
+    res["blend_fwd"]["segments"] = S
     return res
 
 
-def bwd_resources(M, ts):
-    """blend_bwd's kernel on this card at (M, ts): registers per thread,
-    dynamic shared memory per block, local (spill) bytes per thread and
-    resident blocks per SM (csrc/blend.cu blend_bwd_resources)."""
+def resources(name, M, ts, S=1, lib=None):
+    """What kernel `name` takes on this card at its launch shape (M, ts and,
+    for blend_fwd, S depth segments): registers per thread, dynamic shared
+    memory per block, local (spill) bytes per thread and resident blocks
+    per SM (csrc/blend.cu blend_resources; `lib` another build of it)."""
     import ctypes
 
     from gslam_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load("blend").blend_bwd_resources
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn = (lib or cuda_build.load("blend")).blend_resources
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    err = fn(M, ts, out)
-    check(err == 0, f"blend_bwd_resources: CUDA error {err}")
+    err = fn(("blend_fwd", "blend_bwd").index(name), M, ts, S, out)
+    check(err == 0, f"blend_resources({name}): CUDA error {err}")
     return dict(regs_per_thread=out[0], smem_bytes_per_block=out[1],
-                local_bytes_per_thread=out[2], blocks_per_sm=out[3])
+                local_bytes_per_thread=out[2], blocks_per_sm=out[3], threads_per_block=ts * ts * S)
 
 
 def kernel_shapes(gmap, K, tcfg):

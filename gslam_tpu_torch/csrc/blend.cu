@@ -23,9 +23,30 @@
 // transcendentals run on the SM's special-function units, a quarter of the
 // float32 rate. The design keeps every operand on chip: one block per tile,
 // one thread per pixel (P = 256), the tile's 11*M splat floats staged once
-// in shared memory and read by all 256 threads as broadcasts; a pixel skips
+// in shared memory and read by all threads as broadcasts; a pixel skips
 // the transmittance math for splats that do not touch it. No early
 // termination: the reference composites every splat of the list.
+//
+// Forward: each pixel walks its splats front to back, one dependent
+// log-transmittance update after another. Three things cut that chain:
+// - Per-warp culling, as in the backward (below), with warps that cover
+//   8x4 pixel blocks (fwd_pixel): a square footprint meets fewer splats
+//   than the backward's 16x2 rows. The half of the test that depends on the
+//   splat alone (cull_test's box: a log, three divisions, two roots) runs
+//   once per block at staging, not once per warp; a lane then compares one
+//   box with its warp's rectangle. Culled splats would have added exact
+//   zeros, so at S = 1 the outputs are the unculled kernel's, bit for bit.
+// - S depth segments per tile (blend_fwd_segments: enough warps for ~32 per
+//   SM, at most 1024 threads a block). Segment s composites its contiguous
+//   part of the list from T = 1 (pass A); after a barrier it starts from
+//   the fixed-order sum `pre` of the earlier segments' log-transmittance,
+//   and its accumulators are scaled by exp(pre) and summed in segment
+//   order: T_m = exp(pre) * exp(log T within the segment), regrouped.
+//   n_touched needs the true T, so segment 0 counts in pass A and a later
+//   segment re-walks its splats (pass B) only while some lane's true T is
+//   above visibility_min_T. The chain is M / S splats plus pass B.
+// - The n_touched ballot runs only while some lane of the warp can count
+//   (T never rises), checked at each 32-splat chunk.
 //
 // Backward: one forward sweep gives the log-transmittance at the end of
 // every 32-splat chunk (kept in shared memory) and the total; a
@@ -48,7 +69,9 @@
 //   splat skips it; the warps' partials are then summed in a fixed order,
 //   skipping those a warp did not write (they are zeros). Deterministic.
 
+#include <algorithm>
 #include <cfloat>
+#include <cmath>
 
 #include <cuda_runtime.h>
 
@@ -59,6 +82,9 @@ constexpr int kNC = kF + 6;   // bwd per-splat channels: dfeat[F], dop, dca, dcb
 constexpr int kChunk = 32;    // splats per backward flush of warp partials (one per lane)
 constexpr int kNR = 16;       // kNC padded to the reduce-scatter's width
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxThreads = 1024;        // a block's limit: blend_fwd's P * S
+constexpr int kFootW = 8, kFootH = 4;     // blend_fwd's warp footprint (pixels)
+constexpr int kWarpsPerSm = 32;           // blend_fwd_segments' aim
 // cull_keep's bound on float32 rounding in sigma: |sigma_f - sigma| <=
 // kCullGamma * cond(Q) * sigma (a few units of 2^-24 per operation, doubled)
 constexpr float kCullGamma = 32.0f / 16777216.0f;
@@ -104,51 +130,6 @@ __device__ __forceinline__ bool splat_alpha(const Tile& tl, int m, float px, flo
   return ok;
 }
 
-__global__ void blend_fwd_kernel(const float* __restrict__ xy, const float* __restrict__ con,
-                                 const float* __restrict__ op, const float* __restrict__ feat,
-                                 float* __restrict__ out, float* __restrict__ tf,
-                                 int* __restrict__ touched, int M, int ts, int tiles_x,
-                                 float alpha_cut, float alpha_clamp, float min_t) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int P = blockDim.x;
-  const int lane = p & 31;
-  int* s_touched = reinterpret_cast<int*>(smem + (6 + kF) * M);
-  const Tile tl = stage_tile(smem, xy, con, op, feat, t, M);
-  for (int i = p; i < M; i += P) s_touched[i] = 0;
-  __syncthreads();
-
-  const float px = (float)((t % tiles_x) * ts + p % ts);
-  const float py = (float)((t / tiles_x) * ts + p / ts);
-  float log_t = 0.0f;  // running sum of log1p(-alpha) over splats before m
-  float acc[kF];
-#pragma unroll
-  for (int f = 0; f < kF; ++f) acc[f] = 0.0f;
-
-  for (int m = 0; m < M; ++m) {
-    float dx, dy, a_raw, alpha;
-    const bool ok = splat_alpha(tl, m, px, py, alpha_cut, alpha_clamp, dx, dy, a_raw, alpha);
-    float T = 0.0f;
-    if (ok) {
-      T = expf(log_t);
-      const float w = alpha * T;
-#pragma unroll
-      for (int f = 0; f < kF; ++f) acc[f] += w * tl.feat[f * M + m];
-      log_t += log1pf(-alpha);
-    }
-    const unsigned hit = __ballot_sync(kFull, ok && T > min_t);
-    if (lane == 0 && hit) atomicAdd(&s_touched[m], __popc(hit));  // integer: order-free
-  }
-
-  float* o = out + ((size_t)t * P + p) * kF;
-#pragma unroll
-  for (int f = 0; f < kF; ++f) o[f] = acc[f];
-  tf[(size_t)t * P + p] = expf(log_t);
-  __syncthreads();
-  for (int i = p; i < M; i += P) touched[(size_t)t * M + i] = s_touched[i];
-}
-
 // The warp's pixel rectangle: min/max of its lanes' coordinates (any tile
 // size whose ts*ts is a multiple of 32).
 struct Rect { float x0, x1, y0, y1; };
@@ -165,6 +146,14 @@ __device__ Rect warp_rect(float px, float py) {
   return r;
 }
 
+// Whether rectangle r meets the box of half-extents (ex, ey) around (mx, my).
+__device__ __forceinline__ bool box_meets(float mx, float my, float ex, float ey,
+                                          const Rect& r) {
+  const float gx = fmaxf(fmaxf(r.x0 - mx, mx - r.x1), 0.0f);  // distance to r
+  const float gy = fmaxf(fmaxf(r.y0 - my, my - r.y1), 0.0f);
+  return gx <= ex && gy <= ey;
+}
+
 // Whether splat m can pass the alpha test at some pixel of rectangle r; false
 // only where it provably cannot. With Q = [[a, b], [b, c]], sigma(d) =
 // d'Qd/2 and L = log(op / alpha_cut), a pass needs sigma <= L; for Q
@@ -177,11 +166,17 @@ __device__ Rect warp_rect(float px, float py) {
 // Kept always: a conic that is not positive definite, or q > 1/4. Skipped
 // always: L < 0 (op < alpha_cut, including op = 0 and padding).
 // warp_cull_plain (ops/blend.py) is the same predicate in torch.
-__device__ __forceinline__ bool cull_keep(const Tile& tl, int m, const Rect& r,
-                                          float log_cut) {
+// The test's first half depends on the splat alone: with kBox, cull_test
+// writes that half, the box, to box[2] (half-extents around the mean, +inf
+// where kept always) instead of testing r, and box_meets is the second half.
+// (cull_keep is the kBox = false instance: blend_bwd's code is unchanged.)
+template <bool kBox>
+__device__ __forceinline__ bool cull_test(const Tile& tl, int m, const Rect& r, float log_cut,
+                                          float* box) {
   const float L = logf(tl.op[m]) - log_cut;  // -inf for op = 0, NaN below
   const float Lm = L + 2e-5f + 1e-6f * fabsf(L);
   if (!(Lm >= 0.0f)) return false;
+  if (kBox) box[0] = box[1] = INFINITY;
   const float a = tl.ca[m], b = tl.cb[m], c = tl.cc[m];
   const float det = fmaf(a, c, -b * b);
   if (!(a > 0.0f && c > 0.0f && det > 0.0f)) return true;
@@ -191,18 +186,160 @@ __device__ __forceinline__ bool cull_keep(const Tile& tl, int m, const Rect& r,
   const float det_lo = det * (1.0f - q);
   const float ex = sqrtf(2.0f * Le * c / det_lo) * (1.0f + 1e-5f);
   const float ey = sqrtf(2.0f * Le * a / det_lo) * (1.0f + 1e-5f);
-  const float mx = tl.x[m], my = tl.y[m];
-  const float gx = fmaxf(fmaxf(r.x0 - mx, mx - r.x1), 0.0f);  // distance to r
-  const float gy = fmaxf(fmaxf(r.y0 - my, my - r.y1), 0.0f);
-  return gx <= ex && gy <= ey;
+  if (kBox) {
+    box[0] = ex;
+    box[1] = ey;
+    return true;
+  }
+  return box_meets(tl.x[m], tl.y[m], ex, ey, r);
+}
+
+__device__ __forceinline__ bool cull_keep(const Tile& tl, int m, const Rect& r,
+                                          float log_cut) {
+  return cull_test<false>(tl, m, r, log_cut, nullptr);
 }
 
 // The chunk's splats [base, base + 32) that the warp must visit: bit j for
-// splat base + j. Lane j tests splat base + j.
+// splat base + j. Lane j tests splat base + j, with keep(m) or cull_keep.
+template <class Keep>
+__device__ __forceinline__ unsigned warp_live(int base, int M, int lane, bool cull,
+                                              const Keep& keep) {
+  const int m = base + lane;
+  return __ballot_sync(kFull, m < M && (!cull || keep(m)));
+}
+
 __device__ __forceinline__ unsigned warp_live(const Tile& tl, int base, int M, int lane,
                                               const Rect& r, float log_cut, bool cull) {
-  const int m = base + lane;
-  return __ballot_sync(kFull, m < M && (!cull || cull_keep(tl, m, r, log_cut)));
+  return warp_live(base, M, lane, cull, [&](int m) { return cull_keep(tl, m, r, log_cut); });
+}
+
+// Row-major index in the ts x ts tile of blend_fwd's pixel q: warp q / 32
+// covers an 8x4 block, blocks in row-major order (ts is a multiple of 8
+// whenever ts * ts is a multiple of 32).
+__device__ __forceinline__ int fwd_pixel(int q, int ts) {
+  const int w = q >> 5, lane = q & 31;
+  const int bx = w % (ts / kFootW), by = w / (ts / kFootW);
+  return (by * kFootH + lane / kFootW) * ts + bx * kFootW + lane % kFootW;
+}
+
+// Threads [s * P, (s + 1) * P) of a block of P * S composite depth segment s,
+// splats [s * seg_len, (s + 1) * seg_len) of the tile (seg_len a multiple of
+// kChunk). Shared memory: the tile's splats, n_touched [M], each splat's
+// cull box half-extents [2][M], each segment's sum of log1p(-alpha) [S][P],
+// and segments 1..S-1's scaled accumulators [S-1][P][F].
+__global__ void __launch_bounds__(kMaxThreads)
+blend_fwd_kernel(const float* __restrict__ xy, const float* __restrict__ con,
+                 const float* __restrict__ op, const float* __restrict__ feat,
+                 float* __restrict__ out, float* __restrict__ tf, int* __restrict__ touched,
+                 int M, int ts, int tiles_x, float alpha_cut, float alpha_clamp, float min_t,
+                 int seg_len) {
+  extern __shared__ float smem[];
+  const int t = blockIdx.x;
+  const int P = ts * ts;
+  const int S = blockDim.x / P;
+  const int s = threadIdx.x / P;  // depth segment (warp-uniform: P % 32 == 0)
+  const int q = threadIdx.x % P;
+  const int lane = q & 31;
+  int* s_touched = reinterpret_cast<int*>(smem + (6 + kF) * M);
+  float* s_ex = reinterpret_cast<float*>(s_touched + M);  // [M], then s_ey [M]
+  float* s_ey = s_ex + M;
+  float* s_log = s_ey + M;        // [S][P]
+  float* s_acc = s_log + S * P;   // [S-1][P][F]
+  const Tile tl = stage_tile(smem, xy, con, op, feat, t, M);
+  for (int i = threadIdx.x; i < M; i += blockDim.x) s_touched[i] = 0;
+  const bool cull = alpha_cut > 0.0f && alpha_cut <= FLT_MAX;  // else keep every splat
+  const float log_cut = logf(alpha_cut);
+  __syncthreads();
+  // each splat's box, once per block (-1: meets no rectangle)
+  for (int i = threadIdx.x; i < M && cull; i += blockDim.x) {
+    float box[2];
+    if (!cull_test<true>(tl, i, Rect{}, log_cut, box)) box[0] = box[1] = -1.0f;
+    s_ex[i] = box[0];
+    s_ey[i] = box[1];
+  }
+  __syncthreads();
+
+  const int pix = fwd_pixel(q, ts);
+  const float px = (float)((t % tiles_x) * ts + pix % ts);
+  const float py = (float)((t / tiles_x) * ts + pix / ts);
+  const Rect rect = warp_rect(px, py);
+  const auto keep = [&](int m) { return box_meets(tl.x[m], tl.y[m], s_ex[m], s_ey[m], rect); };
+  const int lo = min(s * seg_len, M), hi = min(lo + seg_len, M);
+
+  // pass A: composite the segment from T = 1; segment 0's T is the true one,
+  // so it also counts n_touched
+  float log_t = 0.0f;  // running sum of log1p(-alpha) over the segment's splats before m
+  float acc[kF];
+#pragma unroll
+  for (int f = 0; f < kF; ++f) acc[f] = 0.0f;
+  for (int base = lo; base < hi; base += kChunk) {
+    const bool count = s == 0 && __any_sync(kFull, expf(log_t) > min_t);
+    for (unsigned live = warp_live(base, hi, lane, cull, keep); live; live &= live - 1) {
+      const int m = base + __ffs(live) - 1;  // lowest set bit first: front to back
+      float dx, dy, a_raw, alpha;
+      const bool ok = splat_alpha(tl, m, px, py, alpha_cut, alpha_clamp, dx, dy, a_raw, alpha);
+      float T = 0.0f;
+      if (ok) {
+        T = expf(log_t);
+        const float w = alpha * T;
+#pragma unroll
+        for (int f = 0; f < kF; ++f) acc[f] += w * tl.feat[f * M + m];
+        log_t += log1pf(-alpha);
+      }
+      if (count) {
+        const unsigned hit = __ballot_sync(kFull, ok && T > min_t);
+        if (lane == 0 && hit) atomicAdd(&s_touched[m], __popc(hit));  // integer: order-free
+      }
+    }
+  }
+
+  if (S > 1) {
+    s_log[s * P + q] = log_t;
+    __syncthreads();
+    float pre = 0.0f;  // log T at the segment's start: the earlier segments' sums, in order
+    for (int r = 0; r < s; ++r) pre += s_log[r * P + q];
+    if (s > 0) {
+      // pass B: n_touched with the true T = exp(pre + log T within the
+      // segment), while some lane's T can still exceed min_t
+      float lt = 0.0f;
+      for (int base = lo; base < hi && __any_sync(kFull, expf(pre + lt) > min_t);
+           base += kChunk) {
+        for (unsigned live = warp_live(base, hi, lane, cull, keep); live; live &= live - 1) {
+          const int m = base + __ffs(live) - 1;
+          float dx, dy, a_raw, alpha;
+          const bool ok =
+              splat_alpha(tl, m, px, py, alpha_cut, alpha_clamp, dx, dy, a_raw, alpha);
+          float T = 0.0f;
+          if (ok) {
+            T = expf(pre + lt);
+            lt += log1pf(-alpha);
+          }
+          const unsigned hit = __ballot_sync(kFull, ok && T > min_t);
+          if (lane == 0 && hit) atomicAdd(&s_touched[m], __popc(hit));
+        }
+      }
+      const float scale = expf(pre);
+#pragma unroll
+      for (int f = 0; f < kF; ++f) s_acc[((s - 1) * P + q) * kF + f] = acc[f] * scale;
+    }
+    __syncthreads();
+    if (s == 0) {  // the segments' sums, in segment order
+      for (int r = 1; r < S; ++r) {
+        log_t += s_log[r * P + q];
+#pragma unroll
+        for (int f = 0; f < kF; ++f) acc[f] += s_acc[((r - 1) * P + q) * kF + f];
+      }
+    }
+  }
+
+  if (s == 0) {
+    float* o = out + ((size_t)t * P + pix) * kF;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) o[f] = acc[f];
+    tf[(size_t)t * P + pix] = expf(log_t);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < M; i += blockDim.x) touched[(size_t)t * M + i] = s_touched[i];
 }
 
 // One step of the reduce-scatter: v[0, 2H) -> v[0, H). A lane keeps the
@@ -362,6 +499,21 @@ int set_smem(const void* fn, size_t bytes) {
                                    (int)bytes);
 }
 
+size_t fwd_smem_bytes(int M, int ts, int S) {
+  const size_t P = (size_t)ts * ts;
+  return (size_t)(6 + kF) * M * sizeof(float) +  // the tile's splats
+         (size_t)M * sizeof(int) +                // n_touched
+         (size_t)2 * M * sizeof(float) +          // cull boxes
+         (size_t)S * P * sizeof(float) +          // segment sums of log1p(-alpha)
+         (size_t)(S - 1) * P * kF * sizeof(float);  // segments 1..S-1's accumulators
+}
+
+// Splats per segment: the tile's 32-splat chunks shared out over S segments.
+int fwd_seg_len(int M, int S) {
+  const int n_chunks = (M + kChunk - 1) / kChunk;
+  return (n_chunks + S - 1) / S * kChunk;
+}
+
 size_t bwd_smem_bytes(int M, int ts) {
   const int n_warps = ts * ts / 32;
   const int n_chunks = (M + kChunk - 1) / kChunk;
@@ -375,15 +527,43 @@ size_t bwd_smem_bytes(int M, int ts) {
 
 extern "C" {
 
+// blend_fwd's depth segments per tile on the current card: the fewest that
+// give ~kWarpsPerSm warps per SM over T tiles, at most 1024 threads a block
+// and no more than the tile's 32-splat chunks.
+int blend_fwd_segments(int T, int M, int ts, int* S) {
+  int dev = 0, n_sm = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const long warps = std::max((long)T * (ts * ts / 32), 1L);  // one segment's, over T tiles
+  const long want = ((long)kWarpsPerSm * n_sm + warps - 1) / warps;
+  const int s_max = std::min(kMaxThreads / (ts * ts), std::max((M + kChunk - 1) / kChunk, 1));
+  *S = (int)std::max(1L, std::min(want, (long)s_max));
+  return 0;
+}
+
+// blend_fwd with S depth segments per tile (1 <= S, ts * ts * S <= 1024).
+int blend_fwd_split(const float* xy, const float* con, const float* op, const float* feat,
+                    float* out, float* tf, int* touched, int T, int M, int ts, int tiles_x,
+                    float alpha_cut, float alpha_clamp, float min_t, int S, void* stream) {
+  if (S < 1 || ts * ts * S > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(M, ts, S);
+  int err = set_smem((const void*)blend_fwd_kernel, smem);
+  if (err) return err;
+  blend_fwd_kernel<<<T, ts * ts * S, smem, (cudaStream_t)stream>>>(
+      xy, con, op, feat, out, tf, touched, M, ts, tiles_x, alpha_cut, alpha_clamp, min_t,
+      fwd_seg_len(M, S));
+  return (int)cudaGetLastError();
+}
+
 int blend_fwd(const float* xy, const float* con, const float* op, const float* feat,
               float* out, float* tf, int* touched, int T, int M, int ts, int tiles_x,
               float alpha_cut, float alpha_clamp, float min_t, void* stream) {
-  const size_t smem = (size_t)(6 + kF) * M * sizeof(float) + (size_t)M * sizeof(int);
-  int err = set_smem((const void*)blend_fwd_kernel, smem);
+  int S = 1;
+  const int err = blend_fwd_segments(T, M, ts, &S);
   if (err) return err;
-  blend_fwd_kernel<<<T, ts * ts, smem, (cudaStream_t)stream>>>(
-      xy, con, op, feat, out, tf, touched, M, ts, tiles_x, alpha_cut, alpha_clamp, min_t);
-  return (int)cudaGetLastError();
+  return blend_fwd_split(xy, con, op, feat, out, tf, touched, T, M, ts, tiles_x, alpha_cut,
+                         alpha_clamp, min_t, S, stream);
 }
 
 int blend_bwd(const float* xy, const float* con, const float* op, const float* feat,
@@ -399,19 +579,23 @@ int blend_bwd(const float* xy, const float* con, const float* op, const float* f
   return (int)cudaGetLastError();
 }
 
-// What blend_bwd's kernel takes on this card at (M, ts): out[0] registers per
-// thread, out[1] dynamic shared memory per block (bytes), out[2] local
-// memory per thread (bytes; spills), out[3] resident blocks per SM.
-int blend_bwd_resources(int M, int ts, int* out) {
+// What a kernel takes on this card at its launch shape (M, ts and, for
+// blend_fwd, S segments): kernel 0 is blend_fwd, 1 blend_bwd. out[0]
+// registers per thread, out[1] dynamic shared memory per block (bytes),
+// out[2] local memory per thread (bytes; spills), out[3] resident blocks
+// per SM.
+int blend_resources(int kernel, int M, int ts, int S, int* out) {
+  if (kernel != 0 && kernel != 1) return (int)cudaErrorInvalidValue;
+  const void* fn = kernel == 0 ? (const void*)blend_fwd_kernel : (const void*)blend_bwd_kernel;
+  const int threads = kernel == 0 ? ts * ts * S : ts * ts;
+  const size_t smem = kernel == 0 ? fwd_smem_bytes(M, ts, S) : bwd_smem_bytes(M, ts);
   cudaFuncAttributes attr;
-  int err = (int)cudaFuncGetAttributes(&attr, (const void*)blend_bwd_kernel);
+  int err = (int)cudaFuncGetAttributes(&attr, fn);
   if (err) return err;
-  const size_t smem = bwd_smem_bytes(M, ts);
-  err = set_smem((const void*)blend_bwd_kernel, smem);
+  err = set_smem(fn, smem);
   if (err) return err;
   int blocks = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, blend_bwd_kernel,
-                                                           ts * ts, smem);
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
   out[0] = attr.numRegs;
   out[1] = (int)smem;
   out[2] = (int)attr.localSizeBytes;

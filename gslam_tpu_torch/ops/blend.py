@@ -13,7 +13,7 @@ against its M depth-sorted splats (splat-minor rows):
 
 The kernels live in gslam_tpu_torch/csrc/blend.cu. `blend_fwd_plain` and
 `blend_bwd_plain` write the same math with torch.cumsum over [T, P, M];
-`warp_cull_plain` is the backward kernel's per-warp splat cull.
+`warp_cull_plain` is the kernels' per-warp splat cull.
 The autograd function takes the plain versions for CPU tensors only; a
 CUDA tensor gets the kernel or an error.
 """
@@ -109,20 +109,39 @@ def blend_bwd_plain(xy, con, op, feat, g_out, g_tf, ts, tiles_x, alpha_cut,
 
 
 CULL_GAMMA = 32.0 / 2.0**24  # float32 rounding of sigma, per unit of cond(conic)
+FWD_FOOTPRINT = (8, 4)  # blend_fwd's warps cover 8x4 pixel blocks (csrc/blend.cu fwd_pixel)
 
 
-def warp_cull_plain(xy, con, op, ts, tiles_x, alpha_cut):
-    """bool [T, P // 32, M]: whether warp w of tile t (pixels 32w..32w+31)
-    must visit splat m. blend_bwd's per-warp cull (csrc/blend.cu cull_keep),
-    in torch: False only where the alpha test provably fails at every pixel
-    of the warp's pixel rectangle, with the kernel's margins against float32
-    rounding. Used by the tests and chip_smoke.py, not by the blend."""
+def warp_pixels(ts, footprint=None, device=None):
+    """long [P // 32, 32]: the row-major tile pixels of each warp's lanes.
+    footprint None is blend_bwd's layout, 32 consecutive pixels (16x2 rows
+    at ts=16); (fw, fh) is blocks of fw x fh pixels in row-major order, as
+    blend_fwd's FWD_FOOTPRINT."""
+    P = ts * ts
+    k = torch.arange(P, device=device)
+    if footprint is None:
+        return k.reshape(P // 32, 32)
+    fw, fh = footprint
+    w, lane = k // 32, k % 32
+    bx, by = w % (ts // fw), w // (ts // fw)
+    return ((by * fh + lane // fw) * ts + bx * fw + lane % fw).reshape(P // 32, 32)
+
+
+def warp_cull_plain(xy, con, op, ts, tiles_x, alpha_cut, footprint=None):
+    """bool [T, P // 32, M]: whether warp w of tile t (pixels
+    warp_pixels(ts, footprint)[w]) must visit splat m. The kernels' per-warp
+    cull (csrc/blend.cu cull_keep), in torch: False only where the alpha test
+    provably fails at every pixel of the warp's pixel rectangle, with the
+    kernel's margins against float32 rounding. footprint None is blend_bwd's
+    warps, FWD_FOOTPRINT blend_fwd's. Used by the tests and chip_smoke.py,
+    not by the blend."""
     T, _, M = xy.shape
     P = ts * ts
     if not 0.0 < alpha_cut <= torch.finfo(torch.float32).max:
         return torch.ones((T, P // 32, M), dtype=torch.bool, device=xy.device)
     px, py = _pixel_grid(T, ts, tiles_x, xy.device)
-    px, py = px.reshape(T, P // 32, 32), py.reshape(T, P // 32, 32)
+    idx = warp_pixels(ts, footprint, xy.device)
+    px, py = px[:, idx, 0], py[:, idx, 0]  # [T, W, 32]
     x0, x1 = px.amin(-1, keepdim=True), px.amax(-1, keepdim=True)  # [T, W, 1]
     y0, y1 = py.amin(-1, keepdim=True), py.amax(-1, keepdim=True)
     f32 = dict(dtype=torch.float32, device=xy.device)
@@ -152,6 +171,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "blend_fwd": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    "blend_fwd_split": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "blend_fwd_segments": [_I] * 3 + [ctypes.POINTER(_I)],
     "blend_bwd": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
 }
 
@@ -198,19 +219,35 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def blend_fwd_cuda(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t):
-    """Launch blend_fwd; returns out [T,P,F], t_final [T,P], n_touched [T,M]."""
+def fwd_segments(T, M, ts):
+    """The depth segments per tile that blend_fwd takes for T tiles of M
+    slots on the current card (csrc/blend.cu blend_fwd_segments)."""
+    S = _I()
+    _raise_on(_kernel("blend_fwd_segments")(T, M, ts, ctypes.byref(S)), "blend_fwd_segments")
+    return S.value
+
+
+def blend_fwd_cuda(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t,
+                   segments=None):
+    """Launch blend_fwd; returns out [T,P,F], t_final [T,P], n_touched [T,M].
+    `segments` fixes the depth segments per tile for tests and benchmarks;
+    None (the blend's path) leaves them to the card's rule, fwd_segments."""
     T, M, P = _check_rows(xy, con, op, feat, ts)
+    if segments is not None and not 1 <= segments <= 1024 // P:
+        raise ValueError(f"segments {segments}: need 1 <= S and {P} * S <= 1024")
     out = torch.empty((T, P, F_KERNEL), dtype=torch.float32, device=xy.device)
     tf = torch.empty((T, P), dtype=torch.float32, device=xy.device)
     touched = torch.empty((T, M), dtype=torch.int32, device=xy.device)
     if T == 0:
         return out, tf, touched
-    fn = _kernel("blend_fwd")
     stream = torch.cuda.current_stream(xy.device).cuda_stream
-    err = fn(xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
-             out.data_ptr(), tf.data_ptr(), touched.data_ptr(),
-             T, M, ts, tiles_x, alpha_cut, alpha_clamp, min_t, stream)
+    args = (xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
+            out.data_ptr(), tf.data_ptr(), touched.data_ptr(),
+            T, M, ts, tiles_x, alpha_cut, alpha_clamp, min_t)
+    if segments is None:
+        err = _kernel("blend_fwd")(*args, stream)
+    else:
+        err = _kernel("blend_fwd_split")(*args, segments, stream)
     _raise_on(err, "blend_fwd")
     launches["blend_fwd"] += 1
     return out, tf, touched

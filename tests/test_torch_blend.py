@@ -8,10 +8,13 @@ atol 1e-5; depth and beta 1e-4, since depth features are ~3 and sums of
 to atol 1e-6, rtol 1e-4 as the Pallas-vs-jnp gradient tests are, under
 cotangents of a mean loss over their 64x48 image.
 
-The backward kernel's per-warp splat cull is held, through its plain
-version `warp_cull_plain`, to never dropping a (warp, splat) pair that
-passes the alpha test at one of the warp's pixels: on synthetic rows, on
-the gathered rows of a small scene and on rows built to sit on its edges.
+The kernels' per-warp splat cull is held, through its plain version
+`warp_cull_plain`, to never dropping a (warp, splat) pair that passes the
+alpha test at one of the warp's pixels, for the backward's 16x2 and the
+forward's 8x4 warp footprints: on synthetic rows, on the gathered rows of
+a small scene and on rows built to sit on its edges. On the card, the
+forward is also held to float64 at every depth-segment count on ragged,
+empty, dead and saturating splat lists.
 """
 
 import itertools
@@ -124,12 +127,13 @@ def _excess(k, r, rtol=1e-4):
     return ((k.double() - r.double()).abs() - rtol * r.double().abs()).max().item()
 
 
-def _hold_kernels_to_plain(rows, tiles_x):
+def _hold_kernels_to_plain(rows, tiles_x, segments=None):
     """Each kernel output against the plain version run in float64: beyond
     a relative 1e-4, its error must be at most twice the float32 plain
     version's own error plus 1e-6 of the output's range (n_touched: off by
     one pixel at most, on at most 0.1% of slots, where T sits on
-    visibility_min_T to rounding)."""
+    visibility_min_T to rounding). `segments` fixes blend_fwd's depth
+    segments per tile (None: the card's rule)."""
     rows = [torch.from_numpy(x).cuda() for x in rows]
     rows64 = [x.double() for x in rows]
     T, _, M = rows[0].shape
@@ -139,15 +143,19 @@ def _hold_kernels_to_plain(rows, tiles_x):
          torch.randn(T, P, device="cuda", generator=gen) / MEAN_PIXELS]
     g64 = [x.double() for x in g]
     outs = [
-        (blend.blend_fwd_cuda(*rows, TS, tiles_x, *CFG),
+        (blend.blend_fwd_cuda(*rows, TS, tiles_x, *CFG, segments=segments),
          blend.blend_fwd_plain(*rows, TS, tiles_x, *CFG),
          blend.blend_fwd_plain(*rows64, TS, tiles_x, *CFG)),
         (blend.blend_bwd_cuda(*rows, *g, TS, tiles_x, *CFG[:2]),
          blend.blend_bwd_plain(*rows, *g, TS, tiles_x, *CFG[:2]),
          blend.blend_bwd_plain(*rows64, *g64, TS, tiles_x, *CFG[:2])),
     ]
+    torch.cuda.synchronize()
     for kern, plain, ref in outs:
         for k, p, r in zip(kern, plain, ref):
+            assert k.shape == r.shape and bool(torch.isfinite(k.float()).all())
+            if k.numel() == 0:  # M = 0: no slots
+                continue
             if k.dtype == torch.int32:
                 diff = (k - p).abs()
                 assert diff.max().item() <= 1
@@ -177,6 +185,51 @@ def test_blend_kernels_match_plain_on_adversarial_rows():
     and torch (the CPU cull tests take the gap to 1e-7)."""
     _need_card()
     _hold_kernels_to_plain(adversarial_rows(16, gaps=(-1e-2, 1e-2)), 2)
+
+
+def saturating_rows(seed, tiles_x=2, tiles_y=2, M=100):
+    """make_rows with 16 wide, nearly opaque splats in front, centred on each
+    tile: every pixel's T falls below visibility_min_T in the first chunk."""
+    xy, con, op, feat = make_rows(seed, tiles_x, tiles_y, M)
+    t = np.arange(tiles_x * tiles_y)
+    xy[:, 0, :16] = ((t % tiles_x) * TS + 8.0)[:, None]
+    xy[:, 1, :16] = ((t // tiles_x) * TS + 8.0)[:, None]
+    con[:, :, :16] = np.array([1e-3, 0.0, 1e-3], np.float32)[:, None]
+    op[:, 0, :16] = 0.99
+    return [xy, con, op, feat]
+
+
+def dead_middle_rows(seed, tiles_x=2, tiles_y=2, M=128):
+    """make_rows whose slots 32-95 touch no pixel of their tile (moved far
+    away, some also with op = 0): the middle depth segments hold no live
+    splat."""
+    xy, con, op, feat = make_rows(seed, tiles_x, tiles_y, M)
+    xy[:, :, 32:96] += 1000.0
+    op[:, 0, 48:64] = 0.0
+    return [xy, con, op, feat]
+
+
+EDGE_SHAPES = {  # name: (rows, tiles_x)
+    "M33": lambda: (make_rows(3, 2, 2, 33), 2),
+    "M100": lambda: (make_rows(4, 3, 1, 100), 3),
+    "M20": lambda: (make_rows(5, 2, 1, 20), 2),
+    "M0": lambda: (make_rows(6, 2, 1, 0), 2),
+    "dead_middle_segments": lambda: (dead_middle_rows(7), 2),
+    "saturating": lambda: (saturating_rows(8), 2),
+    "T1": lambda: (make_rows(9, 1, 1, 200), 1),
+    "T20_pyramid": lambda: (make_rows(10, 5, 4, 512), 5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EDGE_SHAPES))
+def test_blend_fwd_edge_shapes_on_card(case):
+    """blend_fwd at every segment count a 256-pixel tile allows (1-4) and
+    at the card's own choice, on ragged, empty, dead and saturating lists."""
+    _need_card()
+    rows, tiles_x = EDGE_SHAPES[case]()
+    for segments in (None, 1, 2, 3, 4):
+        _hold_kernels_to_plain(rows, tiles_x, segments)
 
 
 # ---------------------------------------------------------------- warp cull
@@ -302,34 +355,57 @@ def _rows_for(case):
     return adversarial_rows(15), 2
 
 
+FOOTPRINTS = {"bwd_16x2": None, "fwd_8x4": blend.FWD_FOOTPRINT}
+
+
+@pytest.mark.parametrize("footprint", sorted(FOOTPRINTS))
 @pytest.mark.parametrize("case", sorted(CASES) + ["scene", "adversarial"])
-def test_warp_cull_keeps_every_live_pair(case):
+def test_warp_cull_keeps_every_live_pair(case, footprint):
     """Every (tile, pixel, slot) that passes the alpha test, in float32 or
-    in float64, has its (tile, warp, slot) kept by the cull."""
+    in float64, has its (tile, warp, slot) kept by the cull, for the
+    backward's and the forward's warp footprints."""
     rows, tiles_x = _rows_for(case)
+    fp = FOOTPRINTS[footprint]
     xy, con, op = (torch.from_numpy(x) for x in rows[:3])
-    keep = blend.warp_cull_plain(xy, con, op, TS, tiles_x, CFG[0])
+    keep = blend.warp_cull_plain(xy, con, op, TS, tiles_x, CFG[0], footprint=fp)
     T, _, M = xy.shape
     assert keep.shape == (T, TS * TS // 32, M) and keep.dtype == torch.bool
     n_live = 0
     for dt in (torch.float32, torch.float64):
         ok = blend._alpha(xy.to(dt), con.to(dt), op.to(dt), TS, tiles_x, *CFG[:2])[4]
-        live = ok.reshape(T, TS * TS // 32, 32, M).any(2)
+        live = ok[:, blend.warp_pixels(TS, fp)].any(2)
         assert not (live & ~keep).any(), (dt, torch.nonzero(live & ~keep)[:5])
         n_live = int(live.sum())
     assert n_live > 0
 
 
+@pytest.mark.parametrize("footprint", sorted(FOOTPRINTS))
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_warp_cull_skips_pairs(case):
+def test_warp_cull_skips_pairs(case, footprint):
     """A predicate that kept every pair would pass the test above: on the
     synthetic rows the cull must drop a share of the (warp, slot) pairs,
     among them every empty slot."""
     rows, tiles_x = _rows_for(case)
     xy, con, op = (torch.from_numpy(x) for x in rows[:3])
-    keep = blend.warp_cull_plain(xy, con, op, TS, tiles_x, CFG[0])
+    keep = blend.warp_cull_plain(xy, con, op, TS, tiles_x, CFG[0],
+                                 footprint=FOOTPRINTS[footprint])
     assert keep.float().mean().item() < 0.9
     assert not keep.permute(0, 2, 1)[op[:, 0] == 0].any()
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_warp_pixels_layouts(ts):
+    """Both layouts give each pixel of the tile to exactly one lane; the
+    backward's warps hold 32 consecutive pixels, the forward's an 8x4
+    block (the kernels' fwd_pixel)."""
+    for fp, (w, h) in ((None, (min(ts, 32), 32 // min(ts, 32))), (blend.FWD_FOOTPRINT, (8, 4))):
+        idx = blend.warp_pixels(ts, fp)
+        assert idx.shape == (ts * ts // 32, 32)
+        assert torch.equal(idx.flatten().sort().values, torch.arange(ts * ts))
+        col, row = idx % ts, idx // ts
+        assert (col.amax(1) - col.amin(1) == w - 1).all()
+        assert (row.amax(1) - row.amin(1) == h - 1).all()
+        assert torch.equal(idx[:, 0], idx[:, 0].sort().values)  # warps in row-major order
 
 
 def test_library_hash_covers_included_files(tmp_path):
