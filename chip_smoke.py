@@ -14,14 +14,25 @@ Phases, one JSON line each:
      footprint, by the cull's plain version (which must keep every pair
      with a pixel that passes the alpha test), and its registers, shared
      memory and resident blocks per SM; for blend_fwd the depth segments
-     per tile that the card's rule gives.
+     per tile that the card's rule gives. Also on one camera's rows of the
+     mapping point's 100k-live map (T=300, M=512), the lists that mapping
+     feeds the kernels.
   3. reference: track_frame on a small scene on the card and on the CPU
      (plain blend); the two poses must agree.
-  4. tracking: the main path. BASELINE config 1 (N=50,000 splats, 320x240,
-     fx=280, tile_capacity=512): 10 ground-truth frames rendered by the
-     port, tracked chained with the default igs configuration; then one
+  4. tracking: the first main path. BASELINE config 1 (N=50,000 splats,
+     320x240, fx=280, tile_capacity=512): 10 ground-truth frames rendered by
+     the port, tracked chained with the default igs configuration; then one
      frame with a 3-level pyramid. The kernels' launch counters must show
      one forward per render and one forward + one backward per evaluation.
+  5. mapping_reference: 3 mapping_steps of a small scene (a window of 3
+     keyframes and a padded slot) on the card and on the CPU: losses, the
+     first step's gradient norms, radii and n_touched must agree.
+  6. mapping: the second main path, at bench.py's mapping point (capacity
+     131,072, 100,000 live, a 10-keyframe window at 320x240, fx=280,
+     tile_capacity=512): 2 warm-up steps, then one pass of 15 mapping_steps
+     between CUDA events, from a map whose colors were perturbed away from
+     the one that rendered the keyframes. Each step must launch each kernel
+     once per window camera, and the photometric loss must fall.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -51,6 +62,8 @@ FWD_OPS_PAIR, FWD_OPS_OK = 16, 16
 BWD_OPS_PAIR, BWD_OPS_OK = 32, 50
 
 W, H, FX, N_SPLATS, N_FRAMES = 320, 240, 280.0, 50_000, 10
+# bench.py's mapping operating point (section_mapping)
+MAP_CAP, MAP_LIVE, KF_CAP, WINDOW, N_KF = 131_072, 100_000, 32, 10, 12
 
 
 class SmokeFailure(RuntimeError):
@@ -296,14 +309,33 @@ def kernel_shapes(gmap, K, tcfg):
              -(-(W // 2) // ts), cfg1)]
 
 
-def phase_kernels(gmap, K, tcfg, smi):
+def mapping_rows(point):
+    """The blend's rows of the mapping window's first camera, as the
+    generic render gathers them (the 100k-live map, T=300, M=512)."""
+    import torch
+
+    from gslam_tpu_torch.ops.rasterize import render_rows
+
+    gmap, _opt, kf, _pose_opt, widx, _wmask, K, cfg = point
+    ts = cfg.render.tile_size
+    with torch.no_grad():
+        r = render_rows(**gmap.render_kwargs(), viewmats=kf.poses()[widx[:1]],
+                        Ks=K[None], width=W, height=H, cfg=cfg.render)
+    return [r.xy, r.con, r.op, r.feat], ts, -(-W // ts), cfg.render
+
+
+def phase_kernels(gmap, K, tcfg, point, smi):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     full, half = (compare_and_time(*shape, gen) for shape in kernel_shapes(gmap, K, tcfg))
     check(full["T"] == 300 and full["M"] == 512 and half["T"] == 80,
           f"unexpected shapes {full['T']}x{full['M']}, {half['T']}")
+    mapping = compare_and_time(*mapping_rows(point), gen)
+    check(mapping["T"] == 300 and mapping["M"] == 512,
+          f"unexpected mapping shape {mapping['T']}x{mapping['M']}")
     emit("kernels_vs_plain", nvidia_smi=smi, full_res=full, pyramid_l1=half,
+         mapping_full_res=mapping,
          tolerance="float outputs: max(|kernel - fp64| - 1e-4 |fp64|) <= "
                    "2 max|plain32 - fp64| + 1e-6 max|fp64|; n_touched within 1 "
                    "on <= 0.1% of slots")
@@ -431,6 +463,184 @@ def phase_tracking(gmap, K, tcfg, xis, smi):
     return launches
 
 
+def small_mapping_scene(device):
+    """The mapping parity test's scene (tests/test_torch_mapping.py): 256
+    slots (20 dead) around z=2 before a 32x32 camera, keyframes 0-2 with
+    random images, a window [0, 1, 2, pad]."""
+    import torch
+
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig, init_pose_adam
+    from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
+    from gslam_tpu_torch.mapping.keyframes import add_keyframe, empty_keyframes
+    from gslam_tpu_torch.mapping.optimizer import init_adam
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+
+    rng = np.random.default_rng(5)
+    cap, side = 256, 32
+    alive = np.ones(cap, bool)
+    alive[rng.choice(cap, 20, replace=False)] = False
+    gmap = gaussian_map_from_numpy(dict(
+        means=(rng.normal(0, 0.5, (cap, 3)) + [0, 0, 2.0]),
+        quats=rng.normal(size=(cap, 4)),
+        log_scales=np.log(rng.uniform(0.06, 0.14, (cap, 3))),
+        logit_opacities=rng.normal(1.0, 0.5, cap), logit_colors=rng.normal(size=(cap, 3)),
+        log_uncertainties=rng.uniform(-0.3, 0.3, cap), alive=alive), device=device)
+    kf = empty_keyframes(4, side, side, device=device)
+    for slot in range(3):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.03 * slot, -0.01 * slot, 0.0]
+        kf = add_keyframe(kf, slot, rng.random((side, side, 3)), pose, [0.05 * slot, -0.01],
+                          slot)
+    K = torch.tensor([[30.0, 0, 16], [0, 30.0, 16], [0, 0, 1]], device=device)
+    cfg = MapConfig(window_size=4, render=RenderConfig(tile_capacity=64))
+    widx = torch.tensor([0, 1, 2, 0], device=device)
+    wmask = torch.tensor([True, True, True, False], device=device)
+    return gmap, init_adam(gmap), kf, init_pose_adam(4, device=device), widx, wmask, K, cfg
+
+
+def phase_mapping_reference():
+    """Three mapping steps of the small scene on the card and on the CPU."""
+    from gslam_tpu_torch.mapping.backend_ops import mapping_step, window_grads
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        gmap, opt, kf, pose_opt, widx, wmask, K, cfg = small_mapping_scene(dev)
+        wg = window_grads(gmap, kf, widx, wmask, K, 32, 32, cfg)
+        norms = {f: float(g.double().norm()) for f, g in wg.g_map.items()}
+        norms["pose"] = float(wg.g_pose.double().norm())
+        norms["means2d"] = float(wg.g_probe.double().norm())
+        steps = []
+        for _ in range(3):
+            gmap, opt, kf, pose_opt, aux = mapping_step(gmap, opt, kf, pose_opt, widx,
+                                                        wmask, K, 32, 32, cfg)
+            steps.append((float(aux.total_loss), float(aux.photometric_loss),
+                          aux.radii.cpu(), aux.n_touched.cpu()))
+        res[dev] = (norms, steps)
+    (cn, cs), (gn, gs) = res["cpu"], res["cuda"]
+    loss_rel = max(abs(g[i] / c[i] - 1) for c, g in zip(cs, gs) for i in (0, 1))
+    norm_rel = {k: abs(gn[k] / cn[k] - 1) for k in cn}
+    radii_diff = [int((c[2] != g[2]).sum()) for c, g in zip(cs, gs)]
+    touched_diff = [int((c[3] != g[3]).sum()) for c, g in zip(cs, gs)]
+    emit("mapping_reference", total_loss_cuda=[g[0] for g in gs],
+         total_loss_cpu=[c[0] for c in cs], loss_max_rel_diff=loss_rel,
+         grad_norm_rel_diff=norm_rel, radii_differ=radii_diff,
+         n_touched_differ=touched_diff,
+         tolerance="losses of each step rtol 1e-4; first-step gradient norms per "
+                   "field rtol 1e-4; radii and n_touched equal in every step")
+    check(loss_rel <= 1e-4, f"card and CPU losses differ by {loss_rel} (relative)")
+    check(max(norm_rel.values()) <= 1e-4, f"gradient norms differ: {norm_rel}")
+    check(not any(radii_diff) and not any(touched_diff),
+          f"radii / n_touched differ: {radii_diff} {touched_diff}")
+
+
+def mapping_point(seed=1):
+    """bench.py's mapping operating point (`_mapping_op_point`) on the card:
+    a 131,072-slot map with 100,000 live splats, 12 keyframes 1 cm apart in
+    x whose images are the port's own render of the map at each pose, and
+    the window of slots 2-11. The map that the steps start from has its
+    colors perturbed by a seeded N(0, 0.3) in logit space."""
+    import torch
+
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig, init_pose_adam
+    from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
+    from gslam_tpu_torch.mapping.keyframes import add_keyframe, empty_keyframes
+    from gslam_tpu_torch.mapping.optimizer import init_adam
+    from gslam_tpu_torch.ops.rasterize import RenderConfig, render
+
+    rng = np.random.default_rng(seed)
+    gmap = gaussian_map_from_numpy(make_map_fields(MAP_CAP, MAP_LIVE, rng), device="cuda")
+    K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], device="cuda")
+    cfg = MapConfig(window_size=WINDOW,
+                    render=RenderConfig(tile_capacity=512, pairs_per_gaussian=8))
+    poses = torch.eye(4, device="cuda").repeat(N_KF, 1, 1)
+    poses[:, 0, 3] = 0.01 * torch.arange(N_KF, device="cuda")
+    with torch.no_grad():
+        gts = render(**gmap.render_kwargs(), viewmats=poses, Ks=K[None].expand(N_KF, 3, 3),
+                     width=W, height=H, cfg=cfg.render, device="cuda").rgb
+    check(bool(torch.isfinite(gts).all()), "ground-truth keyframe renders not finite")
+    kf = empty_keyframes(KF_CAP, H, W, device="cuda")
+    for slot in range(N_KF):
+        kf = add_keyframe(kf, slot, gts[slot], poses[slot], torch.zeros(2), slot)
+    noise = rng.normal(scale=0.3, size=(MAP_CAP, 3)).astype(np.float32)
+    gmap = gmap._replace(logit_colors=gmap.logit_colors + torch.from_numpy(noise).cuda())
+    widx = torch.arange(WINDOW, device="cuda") + 2
+    wmask = torch.ones(WINDOW, dtype=torch.bool, device="cuda")
+    return gmap, init_adam(gmap), kf, init_pose_adam(KF_CAP, device="cuda"), widx, wmask, K, cfg
+
+
+def phase_mapping(point, smi):
+    """The mapping main path: 2 warm-up steps and one pass of
+    cfg.num_iters_mapping steps, each between CUDA events, with the launch
+    counters reset before each step."""
+    import torch
+
+    from gslam_tpu_torch.mapping import pruning
+    from gslam_tpu_torch.mapping.backend_ops import mapping_step, window_grads
+    from gslam_tpu_torch.ops import blend
+
+    gmap, opt, kf, pose_opt, widx, wmask, K, cfg = point
+    n_warm, n_pass = 2, cfg.num_iters_mapping
+    budget = int(cfg.render.pairs_per_gaussian * MAP_CAP)
+    totals = {k: 0 for k in blend.launches}
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_warm + n_pass):
+        blend.reset_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        gmap, opt, kf, pose_opt, aux = mapping_step(gmap, opt, kf, pose_opt, widx, wmask,
+                                                    K, W, H, cfg)
+        host_ms = 1e3 * (time.perf_counter() - t0)  # until the host has enqueued it
+        b.record()
+        b.synchronize()
+        launched = dict(blend.launches)
+        for k in totals:
+            totals[k] += launched[k]
+        check(launched == {"blend_fwd": WINDOW, "blend_bwd": WINDOW},
+              f"step {i} launched {launched}, expected {WINDOW} of each kernel")
+        check(all(x.is_cuda for x in (*gmap, *aux)), f"step {i}: a result left the card")
+        steps.append(dict(step=i, warmup=i < n_warm, ms=a.elapsed_time(b), host_ms=host_ms,
+                          total_loss=float(aux.total_loss),
+                          photometric_loss=float(aux.photometric_loss),
+                          max_n_pairs=int(aux.n_pairs.max())))
+    peak = torch.cuda.max_memory_allocated()
+    timed = [st for st in steps if not st["warmup"]]
+    ms = np.array([st["ms"] for st in timed])
+    finite = (all(np.isfinite([st["total_loss"] for st in steps]))
+              and all(bool(torch.isfinite(x).all()) for x in gmap.trainable().values())
+              and bool(torch.isfinite(kf.d_t).all()) and bool(torch.isfinite(kf.d_rot6).all()))
+    remove = (pruning.low_opacity_mask(gmap, cfg.opacity_prune_threshold)
+              | pruning.large_radius_mask(aux.radii.max(0).values, cfg.size_prune_threshold))
+    # is the scatter of the splat gradients deterministic on the card?
+    g1, g2 = (window_grads(gmap, kf, widx, wmask, K, W, H, cfg).g_map for _ in range(2))
+    grad_diff = max(float((g1[f] - g2[f]).abs().max()) for f in g1)
+    result = dict(
+        nvidia_smi=smi, steps=steps, median_ms=float(np.median(ms)),
+        min_ms=float(ms.min()), max_ms=float(ms.max()),
+        median_host_ms=float(np.median([st["host_ms"] for st in timed])),
+        pass_ms=float(ms.sum()), passes_per_s=float(1e3 / ms.sum()),
+        max_memory_allocated_bytes=int(peak),
+        photometric_loss_before=timed[0]["photometric_loss"],
+        photometric_loss_after=timed[-1]["photometric_loss"],
+        # the loss moves by up to ~4x from step to step (Adam at lr 0.025 on
+        # the opacities), so its fall is judged on the first and last 3 steps
+        photometric_loss_first3=float(np.mean([st["photometric_loss"] for st in timed[:3]])),
+        photometric_loss_last3=float(np.mean([st["photometric_loss"] for st in timed[-3:]])),
+        max_n_pairs=max(st["max_n_pairs"] for st in steps), pair_budget=budget,
+        prune_would_remove=int((remove & gmap.alive).sum()), n_live=int(gmap.n_live()),
+        launches=totals, grads_bitwise_repeatable=grad_diff == 0.0,
+        grads_repeat_max_abs_diff=grad_diff,
+    )
+    emit("mapping", **result)
+    check(finite, "mapping produced non-finite values")
+    check(result["photometric_loss_last3"] < result["photometric_loss_first3"],
+          "the photometric loss did not fall over the pass")
+    return totals
+
+
 def main() -> int:
     if not (ROOT / "gslam_tpu_torch" / "csrc" / "blend.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -456,14 +666,21 @@ def main() -> int:
     K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], device="cuda")
     tcfg = TrackingConfig(render=RenderConfig(tile_capacity=512, pairs_per_gaussian=8))
 
-    full = phase_kernels(gmap, K, tcfg, smi)
+    point = mapping_point()
+    full = phase_kernels(gmap, K, tcfg, point, smi)
     phase_reference()
     launches = phase_tracking(gmap, K, tcfg, xis, smi)
+    phase_mapping_reference()
+    map_launches = phase_mapping(point, smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
+    # launches: both main paths; launches_by_path: each path's own count,
+    # read just after that path ran with the counters set to 0 before it
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
-                    replaces=replaces[name], launches=launches[name],
+                    replaces=replaces[name], launches=launches[name] + map_launches[name],
+                    launches_by_path={"tracking": launches[name],
+                                      "mapping": map_launches[name]},
                     max_abs_err=full[name]["max_abs_err"], ms=full[name]["ms"],
                     ms_back_to_back=full[name]["ms_back_to_back"],
                     plain_ms=full[name]["plain_ms"], bound_ms=full[name]["bound_ms"],

@@ -15,6 +15,7 @@ Devices: entry points run on CUDA unless the caller passes
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -35,3 +36,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_device(x, device: torch.device, dtype: torch.dtype = torch.float32):
+    """A tensor or numpy array as a tensor of `dtype` on `device` (None
+    stays None); numpy input is copied."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)

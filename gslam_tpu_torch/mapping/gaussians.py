@@ -2,8 +2,9 @@
 
 Counterpart of gslam_tpu/mapping/gaussians.py: splats live in fixed-size
 tensors with a live mask, so insertion writes into dead slots and pruning
-clears live bits. This slice only reads a frozen map; the carry-across
-functions move a map between the two packages as numpy arrays.
+clears live bits; `compact_map` moves the live splats to a dense prefix and
+`grow_map` copies the buffer into a larger one. The carry-across functions
+move a map between the two packages as numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ import torch
 
 from gslam_tpu_torch import resolve_device
 
+# Fields optimized by the mapping backend (everything but ages/alive).
+TRAINABLE_FIELDS = (
+    "means", "quats", "log_scales", "logit_opacities", "logit_colors",
+    "log_uncertainties",
+)
 FIELDS = (
     "means", "quats", "log_scales", "logit_opacities", "logit_colors",
     "log_uncertainties", "ages", "alive",
@@ -34,6 +40,19 @@ class GaussianMap(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.means.shape[0]
+
+    def n_live(self) -> torch.Tensor:
+        return torch.sum(self.alive.to(torch.int32))
+
+    def render_kwargs(self) -> dict:
+        """Keyword arguments for gslam_tpu_torch.ops.rasterize.render_impl."""
+        return {f: getattr(self, f) for f in TRAINABLE_FIELDS + ("alive",)}
+
+    def trainable(self) -> dict:
+        return {f: getattr(self, f) for f in TRAINABLE_FIELDS}
+
+    def with_trainable(self, params: dict) -> "GaussianMap":
+        return self._replace(**params)
 
 
 def empty_map(capacity: int, device: str | torch.device | None = None) -> GaussianMap:
@@ -77,3 +96,67 @@ def gaussian_map_from_numpy(
 def gaussian_map_to_numpy(gmap: GaussianMap) -> dict[str, np.ndarray]:
     """The map's fields as numpy arrays (the inverse of the above)."""
     return {name: getattr(gmap, name).detach().cpu().numpy() for name in FIELDS}
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Lower median over `values[mask]` (values [n] or [n, d], along axis 0);
+    inf where the mask is empty."""
+    fill = mask if values.dim() == 1 else mask[:, None]
+    v = torch.sort(torch.where(fill, values, torch.inf), dim=0).values
+    k = torch.clamp(torch.sum(mask.to(torch.int32)) - 1, min=0) // 2
+    return v[k]
+
+
+def compact_free_slots(alive: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 indices of the first `n` dead slots; capacity (out of range)
+    where there are fewer."""
+    cap = alive.shape[0]
+    free = torch.nonzero(~alive)[:n, 0].to(torch.int32)
+    pad = torch.full((n - free.shape[0],), cap, dtype=torch.int32, device=alive.device)
+    return torch.cat([free, pad])
+
+
+def compact_map(gmap: GaussianMap, opt_state=None, stable: bool = True,
+                return_order: bool = False):
+    """Permute the live splats to a dense prefix (a pure gather).
+
+    Returns (gmap, opt_state) with the same shapes, the optimizer moments
+    permuted like the parameters; with `return_order` also the permutation.
+    """
+    # torch sorts no bool tensor: dead (1) after live (0), stably
+    order = torch.argsort((~gmap.alive).to(torch.int32), stable=stable)
+    gmap2 = GaussianMap(*(x[order] for x in gmap))
+    opt2 = None
+    if opt_state is not None:
+        opt2 = type(opt_state)(
+            mu={f: v[order] for f, v in opt_state.mu.items()},
+            nu={f: v[order] for f, v in opt_state.nu.items()},
+            count=opt_state.count,
+        )
+    if return_order:
+        return gmap2, opt2, order
+    return gmap2, opt2
+
+
+def grow_map(gmap: GaussianMap, opt_state, new_capacity: int):
+    """Copy the compacted map into a buffer of `new_capacity` slots; new
+    slots are dead and their optimizer moments zero."""
+    if new_capacity < gmap.capacity:
+        raise ValueError("grow_map cannot shrink")
+    gmap, opt_state = compact_map(gmap, opt_state)
+    pad = new_capacity - gmap.capacity
+    big = empty_map(pad, device=gmap.means.device)
+    gmap2 = GaussianMap(*(torch.cat([a, b]) for a, b in zip(gmap, big)))
+    if opt_state is None:
+        return gmap2, None
+
+    def grow(v):
+        return torch.cat([v, torch.zeros((pad,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                         device=v.device)])
+
+    opt2 = type(opt_state)(
+        mu={f: grow(v) for f, v in opt_state.mu.items()},
+        nu={f: grow(v) for f, v in opt_state.nu.items()},
+        count=opt_state.count,
+    )
+    return gmap2, opt2

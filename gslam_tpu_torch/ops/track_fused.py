@@ -20,7 +20,7 @@ from gslam_tpu_torch.ops.blend import blend_tiles_rows
 from gslam_tpu_torch.ops.projection import (
     _camera_point, _clamped_tangent, _cov3d_components, _ewa_conic, _rotate_cov,
 )
-from gslam_tpu_torch.ops.rasterize import CameraBins, RenderConfig
+from gslam_tpu_torch.ops.rasterize import CameraBins, RenderConfig, untile
 
 
 class TileGather(NamedTuple):
@@ -56,15 +56,6 @@ def gather_tracking_tiles(
         color=rows(color.T),
         beta=rows(beta[None, :]),
     )
-
-
-def untile(img_flat: torch.Tensor, tiles_x: int, tiles_y: int, ts: int,
-           width: int, height: int) -> torch.Tensor:
-    """[T, P, ...] tile-major pixels -> [H, W, ...]; pixels of a ragged
-    tile grid beyond the image are cropped (their gradient is zero)."""
-    extra = tuple(img_flat.shape[2:])
-    img = img_flat.reshape((tiles_y, tiles_x, ts, ts) + extra).transpose(1, 2)
-    return img.reshape((tiles_y * ts, tiles_x * ts) + extra)[:height, :width]
 
 
 def tracking_rows(
@@ -122,6 +113,6 @@ def render_tracking_fused(
     beta = out[..., 4] + t_final * cfg.beta_background
 
     def img(x):
-        return untile(x, tiles_x, tiles_y, ts, width, height)
+        return untile(x[None], tiles_x, tiles_y, ts, width, height)[0]
 
     return img(out[..., :3]), img(out[..., 3]), img(beta), img(1.0 - t_final)

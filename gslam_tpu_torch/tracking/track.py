@@ -1,17 +1,17 @@
 """Per-frame camera tracking against a frozen Gaussian map.
 
-Counterpart of gslam_tpu/tracking/track.py for the default configuration
-(method="igs", fused=True): the pose delta (Zhou-6D rotation +
-translation) and the affine exposure pair are packed into one 11-vector
-and refined by Adam warm-up steps followed by L-BFGS with strong-Wolfe line
-search. Every loss evaluation renders the frame through the fused tracking
-render (per-tile projection + the CUDA blend kernels on the card). The
-objective is the uncertainty-weighted 'active-nerf' photometric loss with
-an optional alpha-masked expected-depth L1.
+Counterpart of gslam_tpu/tracking/track.py for method="igs": the pose
+delta (Zhou-6D rotation + translation) and the affine exposure pair are
+packed into one 11-vector and refined by Adam warm-up steps followed by
+L-BFGS with strong-Wolfe line search. Every loss evaluation renders the
+frame with the tile lists binned once at the prior pose: through the fused
+tracking render (per-tile projection + the blend kernels; fused=True, the
+default) or through the generic render_impl (fused=False). The objective is
+the uncertainty-weighted 'active-nerf' photometric loss with an optional
+alpha-masked expected-depth L1.
 
-Not ported yet (they raise NotImplementedError): fused=False, which renders
-through the generic render_impl (ROADMAP A11), and method="gn"
-(Gauss-Newton, forward mode through the blend; ROADMAP A10, after A11).
+Not ported yet (raises NotImplementedError): method="gn" (Gauss-Newton,
+forward mode through the blend; ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -19,16 +19,15 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from gslam_tpu_torch import resolve_device
+from gslam_tpu_torch import resolve_device, to_device
 from gslam_tpu_torch.core.transforms import PoseDelta, invert_se3, pose_matrix
 from gslam_tpu_torch.mapping.gaussians import GaussianMap
 from gslam_tpu_torch.ops.losses import (
     apply_exposure, masked_depth_l1, tracking_photometric,
 )
-from gslam_tpu_torch.ops.rasterize import RenderConfig, compute_bins
+from gslam_tpu_torch.ops.rasterize import RenderConfig, compute_bins, render_impl
 from gslam_tpu_torch.ops.track_fused import (
     gather_tracking_tiles, render_tracking_fused,
 )
@@ -53,7 +52,7 @@ class TrackingConfig:
     depth_loss_weight: float = 1.0
     depth_alpha_min: float = 0.5
     bin_radius_margin: float = 1.5  # footprint inflation for bin reuse
-    fused: bool = True  # per-tile fused projection + blend (the only path ported)
+    fused: bool = True  # per-tile fused projection + blend; False: render_impl
     # coarse-to-fine pyramid: level l runs the same refinement on a
     # 2^l-downsampled image, coarsest first; 1 = flat
     pyramid_levels: int = 1
@@ -79,11 +78,7 @@ def _check_supported(cfg: TrackingConfig):
     if cfg.method != "igs":
         raise NotImplementedError(
             f"tracking method {cfg.method!r} is not ported yet (ROADMAP A10: "
-            "Gauss-Newton needs forward mode through the blend, after A11)")
-    if not cfg.fused:
-        raise NotImplementedError(
-            "fused=False renders through the generic render_impl, which is "
-            "not ported yet (ROADMAP A11)")
+            "Gauss-Newton needs forward mode through the blend)")
 
 
 def track_frame_impl(
@@ -107,7 +102,8 @@ def track_frame_impl(
         base_pose[None], K[None], width, height, cfg.render,
         radius_scale=cfg.bin_radius_margin,
     )
-    tiles = gather_tracking_tiles(gmap, bins)
+    if cfg.fused:
+        tiles = gather_tracking_tiles(gmap, bins)
     dev = gmap.means.device
 
     def unpack(x):
@@ -117,8 +113,14 @@ def track_frame_impl(
 
     def loss_fn(x_host):
         pose, exposure = unpack(x_host.to(dev))
-        rgb_img, depth_img, beta_img, alpha_img = render_tracking_fused(
-            tiles, pose, K, width, height, cfg.render)
+        if cfg.fused:
+            rgb_img, depth_img, beta_img, alpha_img = render_tracking_fused(
+                tiles, pose, K, width, height, cfg.render)
+        else:
+            out = render_impl(**gmap.render_kwargs(), viewmats=pose[None], Ks=K[None],
+                              width=width, height=height, cfg=cfg.render, bins=bins)
+            rgb_img, depth_img, beta_img, alpha_img = (
+                out.rgb[0], out.depth[0], out.beta[0], out.alpha[0])
         rgb = apply_exposure(rgb_img, exposure)
         loss = tracking_photometric(rgb, gt_img, beta_img, cfg.photometric_loss)
         if cfg.use_gt_depths and gt_depth is not None:
@@ -258,13 +260,6 @@ def track_frame(
     if gmap.means.device.type != dev.type:
         raise ValueError(f"the map lies on {gmap.means.device}, tracking on {dev}")
 
-    def on(x):
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            return x.to(device=dev, dtype=torch.float32)
-        return torch.tensor(np.asarray(x, dtype=np.float32), device=dev)  # a copy
-
     return track_frame_pyramid_impl(
-        gmap, on(base_pose), on(init_exposure), on(gt_img), on(K), width,
-        height, cfg, on(gt_depth))
+        gmap, *(to_device(x, dev) for x in (base_pose, init_exposure, gt_img, K)),
+        width, height, cfg, to_device(gt_depth, dev))

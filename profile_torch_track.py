@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where a tracked frame's time goes in the PyTorch port, on one CUDA card.
+"""Where the time of a tracked frame and of a mapping step goes in the
+PyTorch port, on one CUDA card.
 
-    python3 profile_torch_track.py [--frames 3] [--trace out.json]
+    python3 profile_torch_track.py [--section tracking|mapping|all]
+                                   [--frames 3] [--trace out.json]
 
-Builds chip_smoke.py's BASELINE config 1 scene (50,000 splats, 320x240,
-fx=280, tile_capacity=512, default igs tracker), renders ground-truth
-frames, then:
+tracking: chip_smoke.py's BASELINE config 1 scene (50,000 splats, 320x240,
+fx=280, tile_capacity=512, default igs tracker) and its ground-truth frames;
   1. times `track_frame` on each frame with CUDA events (no profiler);
   2. traces one more frame with torch.profiler and reports the device busy
      time (sum of kernel durations on the card; one stream, so they do not
@@ -13,6 +14,14 @@ frames, then:
      evaluation, device time by kernel, and host time in named ranges:
      binning + gather, the forward render, the backward (autograd.grad),
      and the rest (loss, optimizer, readbacks).
+mapping: chip_smoke.py's mapping point (131,072 slots, 100,000 live, a
+10-keyframe window at 320x240, tile_capacity=512);
+  1. times N_PROFILE_STEPS `mapping_step`s with CUDA events after 2
+     warm-up steps;
+  2. traces one more step and reports the same device figures per step,
+     the blend kernels' share of the busy time, and host time in named
+     ranges: the window loss (projection, binning, gather, blend, losses),
+     the binning inside it, the backward, and the masked Adam.
 Prints one JSON line per part, and the card's name and power limit.
 """
 
@@ -28,19 +37,137 @@ import numpy as np
 
 import chip_smoke as cs
 
+N_PROFILE_STEPS = 5  # timed mapping steps
+
+
+def ranged(name, fn):
+    """fn inside a torch.profiler range called `name`."""
+    from torch.profiler import record_function
+
+    def wrapper(*a, **k):
+        with record_function(name):
+            return fn(*a, **k)
+    return wrapper
+
+
+def trace_summary(prof, ranges, wall_ms, per, per_name):
+    """Device busy and idle share, launches and device ms by kernel, and the
+    host side of the named ranges, from one profiled run of `per` units."""
+    import torch
+
+    dev_by_kernel = defaultdict(float)
+    n_kernels = 0
+    host_ranges = defaultdict(float)
+    for ev in prof.events():
+        if ev.name in ranges:
+            # a named range shows on the host and, as an annotation spanning
+            # its kernels, on the device: only its host side is counted
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                host_ranges[ev.name] += ev.cpu_time_total / 1e3
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_by_kernel[ev.name] += ev.device_time_total / 1e3
+            n_kernels += 1
+    busy = sum(dev_by_kernel.values())
+    blend_ms = sum(v for k, v in dev_by_kernel.items() if "blend_" in k)
+    top = sorted(dev_by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": 1.0 - busy / wall_ms,
+        "blend_kernels_ms": blend_ms, "blend_share_of_busy": blend_ms / busy if busy else 0.0,
+        "kernel_launches": n_kernels, f"launches_per_{per_name}": n_kernels / per,
+        "host_ms": dict(host_ranges),
+        "device_ms_by_kernel": {k[:90]: v for k, v in top},
+    }
+
+
+def profile_mapping(smi, trace):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gslam_tpu_torch.mapping import backend_ops
+    from gslam_tpu_torch.ops import rasterize
+
+    gmap, opt, kf, pose_opt, widx, wmask, K, cfg = cs.mapping_point()
+    state = [gmap, opt, kf, pose_opt]
+
+    def step():
+        out = backend_ops.mapping_step(*state, widx, wmask, K, cs.W, cs.H, cfg)
+        state[:] = out[:4]
+        return out[4]
+
+    for _ in range(2):
+        step()
+    steps = []
+    for _ in range(N_PROFILE_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        steps.append(a.elapsed_time(b))
+    print(json.dumps({"part": "mapping_step_time", "nvidia_smi": smi, "ms": steps,
+                      "median_ms": float(np.median(steps))}), flush=True)
+
+    # each part alone between CUDA events: what it costs the step end to end
+    gmap, _opt, kf, _pose_opt = state
+    with torch.no_grad():
+        proj = rasterize.project_cameras(
+            gmap.means, gmap.quats, torch.exp(gmap.log_scales), gmap.alive,
+            kf.poses()[widx], K[None].expand(len(widx), 3, 3), cs.W, cs.H, cfg.render)
+    parts = {
+        "binning_10_cameras": lambda: rasterize._bin_cameras(
+            proj.means2d, proj.radii, proj.depths, proj.valid, cs.W, cs.H, cfg.render),
+        "window_grads": lambda: backend_ops.window_grads(gmap, kf, widx, wmask, K, cs.W,
+                                                         cs.H, cfg),
+        "mapping_step": step,
+    }
+    print(json.dumps({"part": "mapping_parts", "nvidia_smi": smi,
+                      "ms": {k: cs.cuda_ms(fn, reps=5, warmup=1) for k, fn in parts.items()}}),
+          flush=True)
+
+    patched = [(backend_ops, "_window_loss", "window_loss"),
+               (rasterize, "_bin_cameras", "binning"),
+               (backend_ops, "adam_step", "adam"),
+               (torch.autograd, "grad", "backward")]
+    saved = [getattr(m, a) for m, a, _ in patched]
+    for m, a, name in patched:
+        setattr(m, a, ranged(name, getattr(m, a)))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for (m, a, _), fn in zip(patched, saved):
+            setattr(m, a, fn)
+    if trace:
+        prof.export_chrome_trace(trace.replace(".json", "_mapping.json"))
+    summary = trace_summary(prof, [name for *_, name in patched], wall_ms, 1, "step")
+    summary["host_other_ms"] = wall_ms - sum(
+        v for k, v in summary["host_ms"].items() if k != "binning")  # inside window_loss
+    print(json.dumps({"part": "mapping_trace", "nvidia_smi": smi, **summary}), flush=True)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--section", choices=("tracking", "mapping", "all"), default="all")
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--trace", default=None, help="write Chrome traces here")
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_track.py needs a CUDA device", file=sys.stderr)
         return 2
+    smi = cs.nvidia_smi_line()
+    print(smi, flush=True)
+    if args.section in ("mapping", "all"):
+        profile_mapping(smi, args.trace)
+    if args.section == "mapping":
+        return 0
     from gslam_tpu_torch.core.transforms import se3_exp
     from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
     from gslam_tpu_torch.ops.rasterize import RenderConfig, compute_bins
@@ -50,8 +177,6 @@ def main() -> int:
     from gslam_tpu_torch.tracking import track
     from gslam_tpu_torch.tracking.track import TrackingConfig, track_frame
 
-    smi = cs.nvidia_smi_line()
-    print(smi, flush=True)
     W, H = cs.W, cs.H
     rng = np.random.default_rng(0)
     gmap = gaussian_map_from_numpy(cs.make_map_fields(cs.N_SPLATS, cs.N_SPLATS, rng),
@@ -87,12 +212,6 @@ def main() -> int:
           flush=True)
 
     # 2. one traced frame with named host ranges
-    def ranged(name, fn):
-        def wrapper(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return wrapper
-
     track.compute_bins = ranged("bins", track.compute_bins)
     track.gather_tracking_tiles = ranged("gather", track.gather_tracking_tiles)
     track.render_tracking_fused = ranged("render_fwd", track.render_tracking_fused)
@@ -109,30 +228,11 @@ def main() -> int:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    ranges = ("bins", "gather", "render_fwd", "backward")
-    dev_by_kernel = defaultdict(float)
-    n_kernels = 0
-    host_ranges = defaultdict(float)
-    for ev in prof.events():
-        if ev.name in ranges:
-            # a named range shows on the host and, as an annotation spanning
-            # its kernels, on the device: only its host side is counted
-            if ev.device_type == torch.autograd.DeviceType.CPU:
-                host_ranges[ev.name] += ev.cpu_time_total / 1e3
-        elif ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_by_kernel[ev.name] += ev.device_time_total / 1e3
-            n_kernels += 1
-    busy = sum(dev_by_kernel.values())
-    top = sorted(dev_by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    print(json.dumps({
-        "part": "frame_trace", "nvidia_smi": smi, "n_evals": r.n_evals,
-        "wall_ms_profiled": wall_ms, "device_busy_ms": busy,
-        "device_idle_share": 1.0 - busy / wall_ms,
-        "kernel_launches": n_kernels, "launches_per_eval": n_kernels / r.n_evals,
-        "host_ms": dict(host_ranges),
-        "host_other_ms": wall_ms - sum(host_ranges.values()),
-        "device_ms_by_kernel": {k[:90]: v for k, v in top},
-    }), flush=True)
+    summary = trace_summary(prof, ("bins", "gather", "render_fwd", "backward"), wall_ms,
+                            r.n_evals, "eval")
+    summary["host_other_ms"] = wall_ms - sum(summary["host_ms"].values())
+    print(json.dumps({"part": "frame_trace", "nvidia_smi": smi, "n_evals": r.n_evals,
+                      **summary}), flush=True)
     return 0
 
 

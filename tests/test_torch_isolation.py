@@ -36,12 +36,15 @@ def test_no_jax_imports(path):
 def test_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"chip_smoke.py", "gslam_tpu_torch/ops/blend.py",
-            "gslam_tpu_torch/tracking/track.py"} <= names
+            "gslam_tpu_torch/tracking/track.py", "gslam_tpu_torch/mapping/backend_ops.py",
+            "gslam_tpu_torch/ops/ssim.py"} <= names
 
 
 def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
     from gslam_tpu_torch import resolve_device
+    from gslam_tpu_torch.mapping.backend_ops import init_pose_adam
     from gslam_tpu_torch.mapping.gaussians import empty_map, gaussian_map_from_numpy
+    from gslam_tpu_torch.mapping.keyframes import empty_keyframes
     from gslam_tpu_torch.tracking.track import track_frame
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -51,6 +54,10 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
         empty_map(4)
     with pytest.raises(RuntimeError, match="CUDA"):
         gaussian_map_from_numpy({"means": np.zeros((2, 3))})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        empty_keyframes(2, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_pose_adam(2)
     gmap = empty_map(4, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         track_frame(gmap, np.eye(4), np.zeros(2), np.zeros((16, 16, 3)),

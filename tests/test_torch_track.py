@@ -223,12 +223,17 @@ def track_setup():
                 prior=prior, gt_depth=gt_depth.astype(np.float32))
 
 
-@pytest.mark.parametrize("levels,rgbd", [(1, False), (2, False), (1, True)],
-                         ids=["flat", "pyramid2", "flat_rgbd"])
-def test_track_frame_matches_jax(track_setup, levels, rgbd):
+@pytest.mark.parametrize("levels,rgbd,fused",
+                         [(1, False, True), (2, False, True), (1, True, True),
+                          (1, False, False)],
+                         ids=["flat", "pyramid2", "flat_rgbd", "flat_unfused"])
+def test_track_frame_matches_jax(track_setup, levels, rgbd, fused):
+    """fused=False renders each evaluation through the generic render_impl
+    with the frame's reused bins, in both packages."""
     s = track_setup
     common = dict(warmup_steps=3, lbfgs_max_iter=12, lbfgs_max_eval=12,
-                  pyramid_levels=levels, pyramid_evals=(8, 6), use_gt_depths=rgbd)
+                  pyramid_levels=levels, pyramid_evals=(8, 6), use_gt_depths=rgbd,
+                  fused=fused)
     depth = s["gt_depth"] if rgbd else None
     jcfg = jt.TrackingConfig(render=JRenderConfig(tile_capacity=CAP), **common)
     tcfg = tt.TrackingConfig(render=RenderConfig(tile_capacity=CAP), **common)
@@ -241,7 +246,7 @@ def test_track_frame_matches_jax(track_setup, levels, rgbd):
     # The line search's cubic fits amplify float32 rounding: the JAX tracker
     # itself moves its pose by 1.1e-4 (flat), 7.3e-4 (2 levels) and 4.4e-4
     # (RGB-D) when the image gets 1e-6 noise; the port sits 1.5e-4, 1.5e-4
-    # and 6.4e-4 from it.
+    # and 6.4e-4 from it (1.2e-4 unfused).
     np.testing.assert_allclose(tr.pose.numpy(), np.asarray(jr.pose), atol=1e-3)
     np.testing.assert_allclose(tr.exposure.numpy(), np.asarray(jr.exposure), atol=1e-3)
     # the loss at poses that far apart: 0.4% (RGB), 2% with the alpha-masked
@@ -262,7 +267,8 @@ def test_track_frame_guard_and_unported_configs(track_setup):
     r = tt.track_frame(*args, cfg, device=CPU)
     assert r.rejected and float(r.loss) == 1e3
     np.testing.assert_allclose(r.pose.numpy(), s["prior"], atol=1e-6)
-    for bad in (dataclasses.replace(cfg, method="gn"),
-                dataclasses.replace(cfg, fused=False)):
-        with pytest.raises(NotImplementedError):
-            tt.track_frame(*args, bad, device=CPU)
+    # Gauss-Newton is not ported yet; fused=False is (test_track_frame_matches_jax)
+    with pytest.raises(NotImplementedError):
+        tt.track_frame(*args, dataclasses.replace(cfg, method="gn"), device=CPU)
+    r = tt.track_frame(*args, dataclasses.replace(cfg, fused=False), device=CPU)
+    assert r.rejected and float(r.loss) == 1e3
