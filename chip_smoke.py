@@ -33,6 +33,28 @@ Phases, one JSON line each:
      between CUDA events, from a map whose colors were perturbed away from
      the one that rendered the keyframes. Each step must launch each kernel
      once per window camera, and the photometric loss must fall.
+  7. slam_reference: 4 frames of a small synthetic room (64x48,
+     tests/test_fused.py's small configuration), monocular and RGB-D,
+     stepped on the card, each frame stepped again on the CPU from a copy
+     of the card's state before it, both drawing from the CPU generator:
+     per frame the keyframe flag, keyframe count, inserted splats, mapping
+     iterations and live count must be equal; the tracker's evaluations
+     must agree until its host-side line search branches apart (never
+     before its first trial), and where none parts the pose must be within
+     2 mm and 2 mrad. A whole monocular CPU run beside the card's must take
+     the same keyframes, inserts and mapping iterations; its pose and
+     live-count gaps are printed.
+  8. slam: the third main path. FusedSlam.run over 12 frames of the port's
+     synthetic room (10,000 splats, 320x240, fx=288, ~1.5 cm per frame,
+     monocular) with every FusedConfig, TrackingConfig and MapConfig default
+     but RenderConfig(tile_capacity=512, pairs_per_gaussian=8), on 131,072
+     slots and a 32-slot keyframe store; chunk=1, sync_every=4,
+     eval_stride=4. Per frame: CUDA-event ms and host syncs of tracking,
+     keyframe decision + insertion and the mapping pass; launches, peak
+     memory, C, N, ATE, PSNR. Checks: finite poses, no abort, C >= 2, >= 5,000
+     inserted and none dropped, N > 500, ATE < 0.06 m, and launch counters
+     equal to what the evaluations, mapping iterations, decision renders and
+     eval renders predict.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -64,6 +86,7 @@ BWD_OPS_PAIR, BWD_OPS_OK = 32, 50
 W, H, FX, N_SPLATS, N_FRAMES = 320, 240, 280.0, 50_000, 10
 # bench.py's mapping operating point (section_mapping)
 MAP_CAP, MAP_LIVE, KF_CAP, WINDOW, N_KF = 131_072, 100_000, 32, 10, 12
+SLAM_FRAMES = 12  # the fused SLAM path's sequence (same capacity and store)
 
 
 class SmokeFailure(RuntimeError):
@@ -641,6 +664,322 @@ def phase_mapping(point, smi):
     return totals
 
 
+def slam_small_cfg():
+    """tests/test_fused.py's small configuration (its RenderConfig without
+    the JAX-only tile_chunk)."""
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.runtime.fused import FusedConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    r = RenderConfig(tile_capacity=64, pairs_per_gaussian=8)
+    return FusedConfig(
+        tracking=TrackingConfig(warmup_steps=5, lbfgs_max_iter=10, lbfgs_max_eval=12, render=r),
+        mapping=MapConfig(window_size=4, recent_window=4, num_iters_init=40,
+                          num_iters_mapping=5, render=r),
+        max_frames=16, init_n_new=400, kf_n_new=50, idle_iters=5)
+
+
+def pose_gap(a, b):
+    """Largest translation gap (m) and rotation angle (rad) between two
+    [n, 4, 4] pose stacks."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    dt = float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())
+    # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): exact near 0, where arccos of
+    # the trace reads float32 rounding as ~1e-3 rad
+    d = np.linalg.norm(a[:, :3, :3] - b[:, :3, :3], axis=(1, 2)) / (2.0 * np.sqrt(2.0))
+    return dt, float((2.0 * np.arcsin(np.clip(d, 0.0, 1.0))).max())
+
+
+SLAM_COUNTS = ("kf_count", "inserted_total", "total_map_iters", "live_count")
+
+
+class EvalRecorder:
+    """Records each tracking evaluation's loss and gradient (the 11-vector's)
+    while in a `with` block: wraps the loss function that track.py hands to
+    the host-side optimizer."""
+
+    def __init__(self):
+        self.evals = []
+
+    def __enter__(self):
+        from gslam_tpu_torch.tracking import track
+
+        self._track, self._orig = track, track.warmup_lbfgs_impl
+
+        def run(loss_fn, x0, **kw):
+            def fn(p):
+                f = loss_fn(p)
+                entry = {"f": float(f.detach())}
+                p.register_hook(lambda g: entry.__setitem__("g", g.detach().cpu().numpy()))
+                self.evals.append(entry)
+                return f
+
+            return self._orig(fn, x0, **kw)
+
+        track.warmup_lbfgs_impl = run
+        return self
+
+    def __exit__(self, *exc):
+        self._track.warmup_lbfgs_impl = self._orig
+
+
+def tracker_agreement(card, cpu, warmup):
+    """Where two trackers' evaluations part: the first index whose loss
+    differs by more than 1e-5 relative (None if none does), and the first
+    evaluation's loss and gradient gaps (relative)."""
+    part = next((k for k, (a, b) in enumerate(zip(card, cpu))
+                 if abs(a["f"] - b["f"]) > 1e-5 * abs(b["f"])), None)
+    if part is None and len(card) != len(cpu):
+        part = min(len(card), len(cpu))
+    if not card:
+        return dict(n_evals=[0, 0], parted_at=part)
+    a, b = card[0], cpu[0]
+    return dict(n_evals=[len(card), len(cpu)], parted_at=part,
+                first_f_rel=abs(a["f"] - b["f"]) / abs(b["f"]),
+                first_g_rel=float(np.linalg.norm(a["g"] - b["g"]) / np.linalg.norm(b["g"])),
+                min_part=warmup + 2)
+
+
+def slam_replay(cfg, ds, w, h, cap, kf_cap):
+    """Steps `ds` on the card, each frame stepped again on the CPU from a
+    copy of the card's state before it (the same draws: the CPU generator).
+    Returns the card's final state and per frame the pose gap, the
+    keyframe flag and counts of both, and where the trackers' evaluations
+    part."""
+    from gslam_tpu_torch.runtime.checkpoint import fused_state_from_numpy, state_leaves
+    from gslam_tpu_torch.runtime.fused import init_fused_state, slam_step
+
+    def to_cpu(state):
+        leaves = {"leaf/" + p: v.cpu().numpy() for p, v in state_leaves(state).items()}
+        return fused_state_from_numpy(leaves, cfg, device="cpu")
+
+    state = init_fused_state(cfg, cap, kf_cap, h, w, seed=0, device="cuda")
+    frames = []
+    for i in range(len(ds)):
+        args = (ds.images[i], ds.depths[i], ds.camera.K, w, h, cfg)
+        with EvalRecorder() as cpu_evals:
+            cpu = slam_step(to_cpu(state), *args)
+        with EvalRecorder() as card_evals:
+            state = slam_step(state, *args)
+        dt, drot = pose_gap(state.traj[i:i + 1].cpu(), cpu.traj[i:i + 1])
+        frames.append(dict(frame=i, pose_gap_m=dt, rot_gap_rad=drot,
+                           keyframe=[bool(state.kf_flags[i]), bool(cpu.kf_flags[i])],
+                           **{f: [int(getattr(state, f)), int(getattr(cpu, f))]
+                              for f in SLAM_COUNTS},
+                           tracker=tracker_agreement(card_evals.evals, cpu_evals.evals,
+                                                     cfg.tracking.warmup_steps)))
+    return state, frames
+
+
+def phase_slam_reference():
+    """A small fused SLAM run on the card (CUDA kernels), each frame held
+    against the same step on the CPU (plain versions) from the card's state
+    before it, monocular and RGB-D. Per frame the discrete decisions and
+    counts must be equal, and the tracker's evaluations must agree: the
+    first one's loss within 1e-5 and gradient within 1e-4 (relative), and
+    every later one's loss within 1e-5 until the host-side line search
+    first branches apart, which may not happen before its first trial. Where
+    no evaluation parts, the pose must be within 2 mm / 2 mrad. (On this
+    64x48 scene, a 12-evaluation tracker on a 40-iteration bootstrap map
+    stops in a flat basin, where such a branch moves the pose by
+    millimetres.) A whole monocular CPU run is compared too: its discrete
+    decisions must match the card's; its pose and live-count gaps are
+    printed."""
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.runtime.fused import FusedSlam
+
+    w, h, cap, kf_cap = 64, 48, 2048, 8
+    ds = SyntheticDataset(seq_len=4, width=w, height=h, n_splats=400, seed=3, device="cpu")
+    mono = slam_small_cfg()
+    rgbd = dataclasses.replace(
+        mono, use_gt_depths=True,
+        tracking=dataclasses.replace(mono.tracking, use_gt_depths=True),
+        mapping=dataclasses.replace(mono.mapping, use_gt_depths=True))
+    state, mono_frames = slam_replay(mono, ds, w, h, cap, kf_cap)
+    _, rgbd_frames = slam_replay(rgbd, ds, w, h, cap, kf_cap)
+    cuda_traj = state.traj[:len(ds)].cpu().numpy()
+    slam = FusedSlam(mono, w, h, capacity=cap, kf_capacity=kf_cap, seed=0, device="cpu")
+    mc = slam.run(ds, chunk=1, sync_every=0)
+    whole = dict(kf_frames=np.nonzero(state.kf_flags[:len(ds)].cpu().numpy())[0].tolist(),
+                 inserted_total=int(state.inserted_total),
+                 total_map_iters=int(state.total_map_iters), N=int(state.live_count))
+    wdt, wdrot = pose_gap(cuda_traj, slam.trajectory)
+    emit("slam_reference", mono=mono_frames, rgbd=rgbd_frames, whole_cuda=whole,
+         whole_cpu={k: mc[k] for k in whole}, whole_pose_gap_m=wdt, whole_rot_gap_rad=wdrot,
+         tolerance="per frame from the card's state: keyframe flag and counts equal; first "
+                   "tracking evaluation loss rtol 1e-5, gradient 1e-4 of its norm; later "
+                   "losses rtol 1e-5 until the line search branches, not before its first "
+                   "trial; pose within 2 mm / 2 mrad where no evaluation parts; whole "
+                   "monocular runs: kf_frames, inserted_total, total_map_iters equal")
+    for mode, frames in (("mono", mono_frames), ("rgbd", rgbd_frames)):
+        for f in frames:
+            where = f"slam_reference {mode}: frame {f['frame']}"
+            bad = [k for k in ("keyframe",) + SLAM_COUNTS if f[k][0] != f[k][1]]
+            check(not bad, f"{where}: {bad} differ: {f}")
+            t = f["tracker"]
+            if t["n_evals"][1]:
+                check(t["first_f_rel"] <= 1e-5 and t["first_g_rel"] <= 1e-4,
+                      f"{where}: first tracking evaluation differs: {t}")
+            if t["parted_at"] is None:
+                check(f["pose_gap_m"] <= 2e-3 and f["rot_gap_rad"] <= 2e-3,
+                      f"{where}: poses differ by {f['pose_gap_m']} m, {f['rot_gap_rad']} rad")
+            else:
+                check(t["parted_at"] >= t["min_part"],
+                      f"{where}: tracking evaluations part before the line search: {t}")
+    for k in ("kf_frames", "inserted_total", "total_map_iters"):
+        check(whole[k] == mc[k], f"slam_reference: whole runs: {k} cuda {whole[k]}, cpu {mc[k]}")
+
+
+class FrameClock:
+    """CUDA events and host-sync counts at the fused step's phase boundaries:
+    wraps runtime.fused's slam_step_impl, track_frame_pyramid_impl and
+    _mapping_phase for the duration of a `with` block. Host syncs are the
+    warnings of torch.cuda.set_sync_debug_mode("warn"), one per
+    synchronizing CUDA call."""
+
+    def __init__(self):
+        import warnings
+
+        self.frames = []
+        self._warnings = warnings
+
+    def _mark(self, name):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.frames[-1][name] = (ev, len(self._seen))
+
+    def __enter__(self):
+        import torch
+
+        from gslam_tpu_torch.runtime import fused
+
+        self._fused = fused
+        self._orig = {n: getattr(fused, n) for n in
+                      ("slam_step_impl", "track_frame_pyramid_impl", "_mapping_phase")}
+        orig = self._orig
+
+        def step(*a, **kw):
+            self.frames.append({})
+            self._mark("start")
+            out = orig["slam_step_impl"](*a, **kw)
+            self._mark("end")
+            return out
+
+        def track(*a, **kw):
+            out = orig["track_frame_pyramid_impl"](*a, **kw)
+            self._mark("tracked")
+            return out
+
+        def mapping(*a, **kw):
+            self._mark("map_start")
+            out = orig["_mapping_phase"](*a, **kw)
+            self._mark("map_end")
+            return out
+
+        fused.slam_step_impl, fused.track_frame_pyramid_impl, fused._mapping_phase = (
+            step, track, mapping)
+        self._catch = self._warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        self._warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        for n, f in self._orig.items():
+            setattr(self._fused, n, f)
+
+    def split(self):
+        """Per frame: ms and host syncs of tracking, decision + insertion,
+        the mapping pass and the whole step."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = []
+        for f in self.frames:
+            tracked = f.get("tracked", f["start"])
+
+            def span(a, b):
+                return a[0].elapsed_time(b[0]), b[1] - a[1]
+
+            parts = {"tracking": span(f["start"], tracked),
+                     "decision_insertion": span(tracked, f["map_start"]),
+                     "mapping": span(f["map_start"], f["map_end"]),
+                     "step": span(f["start"], f["end"])}
+            out.append({**{f"{k}_ms": v[0] for k, v in parts.items()},
+                        **{f"{k}_syncs": v[1] for k, v in parts.items()}})
+        return out
+
+
+def phase_slam(smi):
+    """The third main path: FusedSlam.run over 12 frames of the port's
+    synthetic room at 320x240 with every default but the render config, on
+    a 131,072-slot map; the launch counters are set to 0 just before the
+    run and read just after."""
+    import torch
+
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.runtime.fused import FusedConfig, FusedSlam
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    ds = SyntheticDataset(seq_len=SLAM_FRAMES, width=W, height=H, n_splats=10_000, seed=3,
+                          motion_scale=0.015, device="cuda")
+    r = RenderConfig(tile_capacity=512, pairs_per_gaussian=8)
+    cfg = FusedConfig(tracking=TrackingConfig(render=r), mapping=MapConfig(render=r),
+                      max_frames=32)
+    slam = FusedSlam(cfg, W, H, capacity=MAP_CAP, kf_capacity=KF_CAP, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blend.reset_launches()
+    t0 = time.perf_counter()
+    with FrameClock() as clock:
+        m = slam.run(ds, chunk=1, sync_every=4, eval_stride=4)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(blend.launches)
+    peak = torch.cuda.max_memory_allocated()
+    frames = clock.split()
+    rest = frames[1:]
+    n_evals = int(slam.telemetry["n_evals"].sum())
+    n_eval_views = len(range(0, SLAM_FRAMES, 4))
+    # one forward per tracking evaluation, per keyframe-decision camera (2 a
+    # frame), per window camera of a mapping iteration (window_size, padded
+    # ones included) and per eval view; one backward per evaluation and per
+    # window camera of a mapping iteration
+    window = cfg.mapping.window_size
+    want = {"blend_fwd": n_evals + 2 * m["L"] + window * m["total_map_iters"] + n_eval_views,
+            "blend_bwd": n_evals + window * m["total_map_iters"]}
+
+    def med(key):
+        return float(np.median([f[key] for f in rest]))
+
+    emit("slam", nvidia_smi=smi, frames=frames, bootstrap_frame=frames[0],
+         median_frame={k: med(k) for k in frames[0]}, wall_s=wall_s,
+         launches=launches, launches_predicted=want, sum_n_evals=n_evals,
+         max_memory_allocated_bytes=int(peak),
+         metrics={k: v for k, v in m.items() if k not in ("wall_s", "enqueue_s", "fps_wall")},
+         gt_splats=10_000, capacity=MAP_CAP)
+    check(np.isfinite(slam.trajectory).all() and m["nonfinite_poses"] == 0,
+          "slam: a pose is not finite")
+    check(not m["diverged"], f"slam: the run diverged (health {m['health']})")
+    check(m["C"] >= 2 and 0 in m["kf_frames"], f"slam: keyframes {m['kf_frames']}")
+    check(m["inserted_total"] >= 5000 and m["dropped_inserts"] == 0,
+          f"slam: inserted {m['inserted_total']}, dropped {m['dropped_inserts']}")
+    check(m["N"] > 500, f"slam: {m['N']} live splats")
+    check(m["ate"] < 0.06, f"slam: ATE {m['ate']} m >= 0.06")
+    check(launches == want, f"slam: launches {launches} != predicted {want}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "gslam_tpu_torch" / "csrc" / "blend.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -672,15 +1011,18 @@ def main() -> int:
     launches = phase_tracking(gmap, K, tcfg, xis, smi)
     phase_mapping_reference()
     map_launches = phase_mapping(point, smi)
+    del point
+    phase_slam_reference()
+    slam_launches = phase_slam(smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
-    # launches: both main paths; launches_by_path: each path's own count,
-    # read just after that path ran with the counters set to 0 before it
+    # launches: the three main paths; launches_by_path: each path's own
+    # count, read just after that path ran with the counters set to 0 before it
+    by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches}
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
-                    replaces=replaces[name], launches=launches[name] + map_launches[name],
-                    launches_by_path={"tracking": launches[name],
-                                      "mapping": map_launches[name]},
+                    replaces=replaces[name], launches=sum(p[name] for p in by_path.values()),
+                    launches_by_path={k: p[name] for k, p in by_path.items()},
                     max_abs_err=full[name]["max_abs_err"], ms=full[name]["ms"],
                     ms_back_to_back=full[name]["ms_back_to_back"],
                     plain_ms=full[name]["plain_ms"], bound_ms=full[name]["bound_ms"],

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -42,24 +43,46 @@ from gslam_tpu_torch.ops.ssim import ssim_per_image
 
 @dataclasses.dataclass(frozen=True)
 class MapConfig:
-    """Mapping hyperparameters, with the JAX package's defaults (which
-    mirror the reference's): the fields the mapping step, its render
-    programs and the pruning masks read. The JAX config's keyframe-policy,
-    densification and initialisation fields come with the code that reads
-    them."""
+    """Mapping hyperparameters, every field of the JAX package's MapConfig
+    with its default (which mirror the reference's). The mapping step, its
+    render programs and the pruning masks read the loss, window and prune
+    fields; the fused runtime (runtime/fused.py) reads the keyframe policy,
+    initialisation, plateau, densification and pose-graph fields."""
 
     isotropic_weight: float = 0.0005
     depth_tv_weight: float = 0.000001
     ssim_weight: float = 0.2
     pose_lr: float = 0.003
     opacity_decay: float = 0.995
+    initial_opacity: float = 0.3
+    initial_scale: float = 1.0
     window_size: int = 10  # 8 recent (+2 random; see window policy)
+    recent_window: int = 8
     num_iters_mapping: int = 15
+    num_iters_init: int = 400
     opacity_prune_threshold: float = 0.2
     size_prune_threshold: float = 256.0
     active_gs: bool = True
+    min_visibility_views: int = 3
+    enable_visibility_pruning: bool = False
+    enable_pgo: bool = False
+    kf_cov: float = 0.9
+    kf_oc: float = 0.99
+    kf_m: float = 0.15
+    kf_cos: float = math.cos(math.pi / 30)
+    # motion-adaptive keyframe trigger: also take a keyframe once the camera
+    # has moved kf_adapt times its own EMA per-frame step since the last
+    # keyframe (0 disables)
+    kf_adapt: float = 2.5
     use_gt_depths: bool = False
     depth_loss_weight: float = 0.1
+    plateau_patience: int = 3
+    # 0.0 = plateau pause disabled (mapping never stops early)
+    plateau_min_loss: float = 0.0
+    densify_every: int = 200
+    densify_max_new: int = 4096
+    grow_grad2d: float = 0.0002
+    grow_scale3d: float = 0.01
     background: tuple = (0.0, 0.0, 0.0)
     render: RenderConfig = RenderConfig()
 

@@ -107,13 +107,21 @@ def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return v[k]
 
 
+def nonzero_fixed(mask: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
+    """int64 indices of the first `size` True entries of a 1-D mask, in
+    order, padded with `fill_value`: jnp.nonzero(mask, size=, fill_value=).
+    A stable sort in place of a count, so the host never waits for it."""
+    order = torch.argsort((~mask).to(torch.int32), stable=True)[:size]
+    idx = torch.where(mask[order], order, fill_value)
+    pad = torch.full((size - idx.shape[0],), fill_value, dtype=idx.dtype,
+                     device=mask.device)
+    return torch.cat([idx, pad])
+
+
 def compact_free_slots(alive: torch.Tensor, n: int) -> torch.Tensor:
     """int32 indices of the first `n` dead slots; capacity (out of range)
     where there are fewer."""
-    cap = alive.shape[0]
-    free = torch.nonzero(~alive)[:n, 0].to(torch.int32)
-    pad = torch.full((n - free.shape[0],), cap, dtype=torch.int32, device=alive.device)
-    return torch.cat([free, pad])
+    return nonzero_fixed(~alive, n, alive.shape[0]).to(torch.int32)
 
 
 def compact_map(gmap: GaussianMap, opt_state=None, stable: bool = True,

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from gslam_tpu_torch.core.transforms import quaternion_to_matrix
+
 
 class ProjectionOutput(NamedTuple):
     means2d: torch.Tensor  # [N, 2] pixel coords
@@ -52,6 +54,13 @@ def _cov3d_components(quats: torch.Tensor, scales: torch.Tensor):
     c12 = m10 * m20 + m11 * m21 + m12 * m22
     c22 = m20 * m20 + m21 * m21 + m22 * m22
     return c00, c01, c02, c11, c12, c22
+
+
+def quat_scale_to_covar(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Covariance R diag(s^2) R^T for activated scales, [N, 4], [N, 3] ->
+    [N, 3, 3] (the split densification samples offsets with it)."""
+    M = quaternion_to_matrix(quats) * scales[..., None, :]
+    return M @ M.transpose(-1, -2)
 
 
 def _rotate_cov(R: torch.Tensor, c):

@@ -47,6 +47,15 @@ class TrackingConfig:
     # divergence guard: a non-finite result or a per-frame translation
     # delta above this bound (map units) falls back to the motion prior
     max_step: float = 0.5
+    # innovation-scaled plausibility gate, applied where a history gauge
+    # exists (runtime/fused.py): a track is rejected when its translation
+    # off the motion prior exceeds
+    #   max(guard_innov_mult * innov_ema, guard_step_floor)
+    #     + n_consecutive_rejections * max(2 innov_ema, guard_step_floor / 2)
+    # or its rotation off the prior exceeds guard_max_rot radians; 0 disables
+    guard_innov_mult: float = 3.5
+    guard_step_floor: float = 0.03
+    guard_max_rot: float = 0.35
     learn_exposure: bool = True
     use_gt_depths: bool = False
     depth_loss_weight: float = 1.0

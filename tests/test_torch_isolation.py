@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = sorted((ROOT / "gslam_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the package and the port's entry scripts
+SOURCES = sorted((ROOT / "gslam_tpu_torch").rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "profile_torch_track.py", "bench_blend.py")]
 FORBIDDEN = ("jax", "jaxlib", "gslam_tpu")
 
 
@@ -35,9 +37,13 @@ def test_no_jax_imports(path):
 
 def test_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
-    assert {"chip_smoke.py", "gslam_tpu_torch/ops/blend.py",
-            "gslam_tpu_torch/tracking/track.py", "gslam_tpu_torch/mapping/backend_ops.py",
-            "gslam_tpu_torch/ops/ssim.py"} <= names
+    assert {"chip_smoke.py", "profile_torch_track.py", "bench_blend.py",
+            "gslam_tpu_torch/ops/blend.py", "gslam_tpu_torch/tracking/track.py",
+            "gslam_tpu_torch/mapping/backend_ops.py", "gslam_tpu_torch/ops/ssim.py",
+            "gslam_tpu_torch/runtime/fused.py", "gslam_tpu_torch/runtime/checkpoint.py",
+            "gslam_tpu_torch/mapping/insertion.py", "gslam_tpu_torch/ops/knn.py",
+            "gslam_tpu_torch/core/camera.py", "gslam_tpu_torch/io/frames.py",
+            "gslam_tpu_torch/io/synthetic.py", "gslam_tpu_torch/eval/trajectory.py"} <= names
 
 
 def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
@@ -45,6 +51,7 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
     from gslam_tpu_torch.mapping.backend_ops import init_pose_adam
     from gslam_tpu_torch.mapping.gaussians import empty_map, gaussian_map_from_numpy
     from gslam_tpu_torch.mapping.keyframes import empty_keyframes
+    from gslam_tpu_torch.runtime.fused import FusedConfig, FusedSlam, init_fused_state
     from gslam_tpu_torch.tracking.track import track_frame
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -62,6 +69,10 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         track_frame(gmap, np.eye(4), np.zeros(2), np.zeros((16, 16, 3)),
                     np.eye(3), 16, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_fused_state(FusedConfig(max_frames=2), 4, 2, 16, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedSlam(FusedConfig(max_frames=2), 16, 16, capacity=4, kf_capacity=2).run([])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
