@@ -55,6 +55,27 @@ Phases, one JSON line each:
      inserted and none dropped, N > 500, ATE < 0.06 m, and launch counters
      equal to what the evaluations, mapping iterations, decision renders and
      eval renders predict.
+  9. actor_reference: the actor runtime (SlamSystem) over 4 frames of a
+     small synthetic room (64x48) in four modes (igs, method="warp",
+     enable_pgo, RGB-D), each frame also run on the CPU from a copy of the
+     card's system before it (the same draws; the CPU's backend takes the
+     card's tracked pose): per frame the keyframe flag and the keyframe,
+     live and health counts must be equal; the tracker's
+     evaluations must agree until its host-side line search branches apart,
+     and where none parts the pose must be within 2 mm / 2 mrad.
+     pose_refinement_lbfgs over each run's final window on the card and
+     the CPU: its first evaluation (loss, gradient) within rtol 1e-4, the
+     frozen and padded slots bit for bit. A threaded run (synchronous=False)
+     must finish with finite poses.
+ 10. actor: the fourth main path, main.py's default. SlamSystem over the slam
+     phase's 12 frames with every SlamConfig, TrackingConfig and MapConfig
+     default but the render config, 131,072 slots, a 32-slot keyframe
+     store, telemetry off, eval_stride=4. Per frame: CUDA-event ms and host
+     syncs of track, insert_decision, map, prune, pose_refine and sync;
+     pose-refinement evaluations, launches, peak memory, C, N, ATE, PSNR.
+     Checks: finite poses, not diverged, C >= 2, ATE < 0.06 m, and launch
+     counters equal to what the tracking and refinement evaluations, the
+     mapping iterations and the view, decision and eval renders predict.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -695,17 +716,21 @@ SLAM_COUNTS = ("kf_count", "inserted_total", "total_map_iters", "live_count")
 
 
 class EvalRecorder:
-    """Records each tracking evaluation's loss and gradient (the 11-vector's)
-    while in a `with` block: wraps the loss function that track.py hands to
-    the host-side optimizer."""
+    """Records each evaluation's loss and gradient while in a `with` block:
+    wraps the host-side optimizer that a module hands its loss function to
+    (by default the tracker's, track.warmup_lbfgs_impl)."""
 
-    def __init__(self):
+    def __init__(self, module_name="gslam_tpu_torch.tracking.track",
+                 attr="warmup_lbfgs_impl"):
         self.evals = []
+        self._where = module_name, attr
 
     def __enter__(self):
-        from gslam_tpu_torch.tracking import track
+        import importlib
 
-        self._track, self._orig = track, track.warmup_lbfgs_impl
+        module_name, attr = self._where
+        self._module = importlib.import_module(module_name)
+        self._orig = getattr(self._module, attr)
 
         def run(loss_fn, x0, **kw):
             def fn(p):
@@ -717,11 +742,11 @@ class EvalRecorder:
 
             return self._orig(fn, x0, **kw)
 
-        track.warmup_lbfgs_impl = run
+        setattr(self._module, attr, run)
         return self
 
     def __exit__(self, *exc):
-        self._track.warmup_lbfgs_impl = self._orig
+        setattr(self._module, self._where[1], self._orig)
 
 
 def tracker_agreement(card, cpu, warmup):
@@ -735,9 +760,11 @@ def tracker_agreement(card, cpu, warmup):
     if not card:
         return dict(n_evals=[0, 0], parted_at=part)
     a, b = card[0], cpu[0]
+    # a loss of 0 (the warp tracker with no pixel in view) has gradient 0
     return dict(n_evals=[len(card), len(cpu)], parted_at=part,
-                first_f_rel=abs(a["f"] - b["f"]) / abs(b["f"]),
-                first_g_rel=float(np.linalg.norm(a["g"] - b["g"]) / np.linalg.norm(b["g"])),
+                first_f_rel=abs(a["f"] - b["f"]) / max(abs(b["f"]), 1e-30),
+                first_g_rel=float(np.linalg.norm(a["g"] - b["g"])
+                                  / max(np.linalg.norm(b["g"]), 1e-30)),
                 min_part=warmup + 2)
 
 
@@ -980,6 +1007,381 @@ def phase_slam(smi):
     return launches
 
 
+def _moved(x, dev):
+    """A copy of x with every tensor in it on `dev` (tuples, NamedTuples,
+    dicts, lists and sets walked; anything else deep-copied)."""
+    import copy
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev, copy=True)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_moved(v, dev) for v in x))
+    if isinstance(x, (tuple, list, set)):
+        return type(x)(_moved(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _moved(v, dev) for k, v in x.items()}
+    return copy.deepcopy(x)
+
+
+def system_copy(system, dev):
+    """The SlamSystem's whole state (both actors) copied onto `dev`."""
+    import copy
+
+    import torch
+
+    new = copy.copy(system)
+    for name in ("frontend", "backend"):
+        actor = copy.copy(getattr(system, name))
+        actor.__dict__ = {k: _moved(v, dev) for k, v in vars(actor).items()}
+        actor.device = torch.device(dev)
+        setattr(new, name, actor)
+    new.device = torch.device(dev)
+    return new
+
+
+def actor_small_cfg(mode):
+    """The actor at slam_small_cfg's sizes (64x48 frames, tile_capacity 64,
+    40 + 5 mapping iterations over a window of 4), in one of four modes:
+    igs, warp, pgo, rgbd."""
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.runtime.system import SlamConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    r = RenderConfig(tile_capacity=64, pairs_per_gaussian=8)
+    track = dict(warmup_steps=5, lbfgs_max_iter=10, lbfgs_max_eval=12, render=r)
+    mapping = dict(num_iters_init=40, num_iters_mapping=5, window_size=4, recent_window=4,
+                   render=r)
+    if mode == "warp":
+        track["method"] = "warp"
+    elif mode == "pgo":
+        mapping.update(enable_pgo=True, kf_m=0.03)
+    elif mode == "rgbd":
+        track["use_gt_depths"] = mapping["use_gt_depths"] = True
+    return SlamConfig(tracking=TrackingConfig(**track), mapping=MapConfig(**mapping),
+                      capacity=8192, kf_capacity=8, eval_stride=2)
+
+
+def actor_replay(mode, ds, w, h):
+    """Runs `ds` through a synchronous SlamSystem on the card, each frame run
+    again on the CPU from a copy of the card's system before it (the same
+    draws: the CPU generator). The CPU's frontend tracks the frame itself
+    (its evaluations and pose are compared), then hands its backend the
+    card's tracked pose, so the backends' decisions and counts are compared
+    from the same inputs. Per frame: the keyframe flag, keyframe and live
+    counts and health of both, the pose gap, and where the trackers'
+    evaluations part. Returns the card's system and the frames."""
+    from gslam_tpu_torch.runtime.system import SlamSystem
+
+    cfg = actor_small_cfg(mode)
+    card = SlamSystem(cfg, w, h, device="cuda")
+    # the tracker's host-side optimizer: the warp tracker's L-BFGS or igs's
+    recorder = (("gslam_tpu_torch.tracking.warp", "lbfgs_impl") if mode == "warp" else
+                ("gslam_tpu_torch.tracking.track", "warmup_lbfgs_impl"))
+    warmup = 0 if mode == "warp" else cfg.tracking.warmup_steps
+    frames = []
+    for i in range(len(ds)):
+        cpu = system_copy(card, "cpu")
+        with EvalRecorder(*recorder) as card_evals:
+            card._process_frame_sync(ds[i])
+        tracked = card.frontend.frames[-1]
+        own = {}
+
+        def track(frame, cpu_track=cpu.frontend.track, tracked=tracked, own=own):
+            frame = cpu_track(frame)
+            own["pose"] = frame.est_pose
+            frame.est_pose, frame.exposure = tracked.est_pose, tracked.exposure
+            frame.rejected = tracked.rejected
+            return frame
+
+        cpu.frontend.track = track
+        with EvalRecorder(*recorder) as cpu_evals:
+            cpu._process_frame_sync(ds[i])
+        dt, drot = pose_gap(tracked.est_pose[None], own["pose"][None])
+        frames.append(dict(
+            frame=i, pose_gap_m=dt, rot_gap_rad=drot,
+            **{k: [f(card), f(cpu)] for k, f in (
+                ("keyframe", lambda s: i in s.backend.frame_slot),
+                ("kf_count", lambda s: len(s.backend.kf_order)),
+                ("live", lambda s: s.backend.n_live_splats()),
+                ("health", lambda s: s.frontend.health))},
+            tracker=tracker_agreement(card_evals.evals, cpu_evals.evals, warmup)))
+    return card, frames
+
+
+def refine_agreement(system):
+    """pose_refinement_lbfgs over the system's window, on the card and on a
+    CPU copy: the first evaluation's loss and gradient, the evaluations,
+    and whether the frozen and padded slots kept their bits."""
+    import torch
+
+    from gslam_tpu_torch.mapping import backend_ops
+
+    out = {}
+    for dev, sys_ in (("cuda", system), ("cpu", system_copy(system, "cpu"))):
+        be = sys_.backend
+        widx, wmask = be._window()
+        safe = torch.where(wmask, widx, 0)
+        frozen = (~wmask | (be.kf.frame_idx[safe] == 0)).cpu().numpy()
+        before = torch.cat([be.kf.d_rot6[safe], be.kf.d_t[safe]], -1).cpu().numpy()
+        with EvalRecorder("gslam_tpu_torch.mapping.backend_ops", "lbfgs_impl") as rec:
+            kf, f, n_evals = backend_ops.pose_refinement_lbfgs(
+                be.gmap, be.kf, widx, wmask, be.K, be.width, be.height, be.cfg)
+        after = torch.cat([kf.d_rot6[safe], kf.d_t[safe]], -1).cpu().numpy()
+        out[dev] = dict(f0=rec.evals[0]["f"], g0=rec.evals[0]["g"], f=float(f),
+                        n_evals=n_evals, n_free=int((~frozen).sum()),  # slots
+                        frozen_kept=bool((after[frozen] == before[frozen]).all()),
+                        moved=float(np.abs(after - before).max()))
+    a, b = out["cuda"], out["cpu"]
+    return dict(
+        first_f_rel=abs(a["f0"] - b["f0"]) / abs(b["f0"]),
+        first_g_rel=float(np.linalg.norm(a["g0"] - b["g0"]) / np.linalg.norm(b["g0"])),
+        **{k: [a[k], b[k]] for k in ("f0", "f", "n_evals", "n_free", "frozen_kept",
+                                     "moved")})
+
+
+def phase_actor_reference():
+    """The actor runtime on a small scene (64x48) on the card, each frame held
+    against the same frame on the CPU from a copy of the card's system
+    before it, in four modes (igs, warp, pgo, rgbd): per frame the keyframe
+    flag and the keyframe, live and health counts must be equal (the CPU's
+    backend steps from the card's tracked pose: a pose that parted by a
+    millimetre moves a keyframe's inserted splats and can flip one of them
+    across the occlusion or pruning threshold); the
+    tracker's first evaluation within 1e-5 (loss) and 1e-4 (gradient,
+    relative), every later loss within 1e-5 until the host-side line search
+    branches, never before its first trial; where no evaluation parts the
+    pose within 2 mm / 2 mrad. pose_refinement_lbfgs over each run's final
+    window: its first evaluation within rtol 1e-4, frozen and padded slots
+    bit for bit. One threaded run must finish with finite poses."""
+    import torch
+
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.runtime.system import SlamSystem
+
+    w, h = 64, 48
+    ds = SyntheticDataset(seq_len=4, width=w, height=h, n_splats=400, seed=3,
+                          motion_scale=0.02, device="cpu")
+    modes, systems = {}, {}
+    for mode in ("igs", "warp", "pgo", "rgbd"):
+        systems[mode], modes[mode] = actor_replay(mode, ds, w, h)
+    refine = {mode: refine_agreement(sys_) for mode, sys_ in systems.items()}
+    thr_ds = SyntheticDataset(seq_len=6, width=w, height=h, n_splats=400, seed=2,
+                              motion_scale=0.01, device="cpu")
+    thr_cfg = dataclasses.replace(actor_small_cfg("igs"), synchronous=False)
+    thr_sys = SlamSystem(thr_cfg, w, h, device="cuda")
+    thr = thr_sys.run(thr_ds)
+    thr_poses = np.stack([f.est_pose for f in thr_sys.frontend.frames])
+    torch.cuda.synchronize()
+    emit("actor_reference", modes=modes, pose_refinement=refine,
+         threaded={k: thr.get(k) for k in ("L", "C", "N", "ate", "health", "diverged")},
+         tolerance="per frame from the card's system: keyframe flag, keyframe, live and "
+                   "health counts equal; first tracking evaluation loss rtol 1e-5, gradient "
+                   "1e-4 of its norm; later losses rtol 1e-5 until the line search branches, "
+                   "not before its first trial; pose within 2 mm / 2 mrad where no "
+                   "evaluation parts; pose refinement's first evaluation rtol 1e-4, frozen "
+                   "slots bit for bit")
+    for mode, frames in modes.items():
+        for f in frames:
+            where = f"actor_reference {mode}: frame {f['frame']}"
+            bad = [k for k in ("keyframe", "kf_count", "live", "health") if f[k][0] != f[k][1]]
+            check(not bad, f"{where}: {bad} differ: {f}")
+            t = f["tracker"]
+            if t["n_evals"][1]:
+                check(t["first_f_rel"] <= 1e-5 and t["first_g_rel"] <= 1e-4,
+                      f"{where}: first tracking evaluation differs: {t}")
+            if t["parted_at"] is None:
+                check(f["pose_gap_m"] <= 2e-3 and f["rot_gap_rad"] <= 2e-3,
+                      f"{where}: poses differ by {f['pose_gap_m']} m, {f['rot_gap_rad']} rad")
+            else:
+                check(t["parted_at"] >= t["min_part"],
+                      f"{where}: tracking evaluations part before the line search: {t}")
+        check(sum(f["tracker"]["n_evals"][0] for f in frames) > 0,
+              f"actor_reference {mode}: no frame was tracked")
+    for mode, r in refine.items():
+        where = f"actor_reference {mode}: pose refinement"
+        check(r["n_free"][0] >= 1 and r["n_free"] == r["n_free"][::-1],
+              f"{where} has no free slot: {r}")
+        check(r["first_f_rel"] <= 1e-4 and r["first_g_rel"] <= 1e-4,
+              f"{where}: the first evaluation differs: {r}")
+        check(all(r["frozen_kept"]), f"{where}: a frozen slot moved: {r}")
+    check(thr["L"] == len(thr_ds) and np.isfinite(thr_poses).all(),
+          f"actor_reference: the threaded run: {thr}")
+
+
+class ActorClock:
+    """CUDA events and host-sync counts around the actor runtime's parts, per
+    frame, for the duration of a `with` block: wraps the system's
+    _process_frame_sync (the frame) and, on the actor objects, the frontend's
+    track and apply_sync and the backend's initialize, maybe_add_keyframe,
+    optimize_map, run_pruning, refine_poses and sync_payload. Host syncs are
+    the warnings of torch.cuda.set_sync_debug_mode("warn")."""
+
+    PARTS = (("frontend", "track", "track"), ("frontend", "apply_sync", "sync"),
+             ("backend", "initialize", "insert_decision"),
+             ("backend", "maybe_add_keyframe", "insert_decision"),
+             ("backend", "optimize_map", "map"), ("backend", "run_pruning", "prune"),
+             ("backend", "refine_poses", "pose_refine"), ("backend", "sync_payload", "sync"))
+
+    def __init__(self, system):
+        import warnings
+
+        self.system = system
+        self.frames = []
+        self._warnings = warnings
+        self._current = None
+
+    def _mark(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev, len(self._seen)
+
+    def _wrap(self, obj, method, part):
+        orig = getattr(obj, method)
+
+        def run(*a, **kw):
+            start = self._mark()
+            out = orig(*a, **kw)
+            if self._current is not None:
+                self._current["parts"].append((part, start, self._mark()))
+            return out
+
+        setattr(obj, method, run)
+
+    def __enter__(self):
+        import torch
+
+        for actor, method, part in self.PARTS:
+            self._wrap(getattr(self.system, actor), method, part)
+        orig = self.system._process_frame_sync
+
+        def frame(f):
+            self._current = {"start": self._mark(), "parts": []}
+            orig(f)
+            self._current["end"] = self._mark()
+            self.frames.append(self._current)
+            self._current = None
+
+        self.system._process_frame_sync = frame
+        self._catch = self._warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        self._warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        for actor, method, _ in self.PARTS:
+            vars(getattr(self.system, actor)).pop(method, None)
+        vars(self.system).pop("_process_frame_sync", None)
+
+    def split(self):
+        """Per frame: ms and host syncs of each part and of the whole frame."""
+        import torch
+
+        torch.cuda.synchronize()
+        names = sorted({p for _, _, p in self.PARTS})
+        out = []
+        for f in self.frames:
+            row = {"frame_ms": f["start"][0].elapsed_time(f["end"][0]),
+                   "frame_syncs": f["end"][1] - f["start"][1]}
+            for n in names:
+                row[f"{n}_ms"] = sum(a[0].elapsed_time(b[0]) for p, a, b in f["parts"]
+                                     if p == n)
+                row[f"{n}_syncs"] = sum(b[1] - a[1] for p, a, b in f["parts"] if p == n)
+            out.append(row)
+        return out
+
+
+def phase_actor(smi):
+    """The fourth main path, main.py's default: SlamSystem over the slam
+    phase's 12 frames at 320x240 with every SlamConfig, TrackingConfig and
+    MapConfig default but the render config, 131,072 slots, a 32-slot
+    keyframe store, telemetry off, eval_stride 4; the launch counters are set
+    to 0 just before the run and read just after."""
+    import torch
+
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.runtime.system import SlamConfig, SlamSystem
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    ds = SyntheticDataset(seq_len=SLAM_FRAMES, width=W, height=H, n_splats=10_000, seed=3,
+                          motion_scale=0.015, device="cuda")
+    r = RenderConfig(tile_capacity=512, pairs_per_gaussian=8)
+    cfg = SlamConfig(tracking=TrackingConfig(render=r), mapping=MapConfig(render=r),
+                     capacity=MAP_CAP, kf_capacity=KF_CAP, telemetry="null", eval_stride=4,
+                     synchronous=True)
+    system = SlamSystem(cfg, W, H, device="cuda")
+    be = system.backend
+    # how far each pose refinement moved the store's pose deltas, kept on
+    # the card until the run ends (no host sync inside the timed parts)
+    moved, refine = [], be.refine_poses
+
+    def refine_poses():
+        before = torch.cat([be.kf.d_rot6, be.kf.d_t], -1)
+        refine()
+        moved.append(torch.amax(torch.abs(torch.cat([be.kf.d_rot6, be.kf.d_t], -1) - before)))
+
+    be.refine_poses = refine_poses
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blend.reset_launches()
+    t0 = time.perf_counter()
+    with ActorClock(system) as clock:
+        m = system.run(ds)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(blend.launches)
+    peak = torch.cuda.max_memory_allocated()
+    frames = clock.split()
+    rest = frames[1:]
+    fe = system.frontend
+    n_track = int(sum(fe.evals))
+    n_refine = int(sum(be.refine_evals))
+    # one forward and one backward per tracking evaluation and per window
+    # camera (padded ones included) of each mapping iteration and each pose
+    # refinement evaluation; one forward per render_view_stats (the sync
+    # render closing each optimize_map, and each run_pruning), per
+    # keyframe-decision camera (2 a frame after the first) and per eval view
+    window = cfg.mapping.window_size
+    view_stats = be.phase_n.get("map", 0) + be.phase_n.get("prune", 0)
+    n_eval_views = len(range(0, m["L"], cfg.eval_stride))
+    grads = n_track + window * (be.total_step + n_refine)
+    want = {"blend_fwd": grads + view_stats + 2 * (m["L"] - 1) + n_eval_views,
+            "blend_bwd": grads}
+    poses = np.stack([f.est_pose for f in fe.frames])
+
+    def med(key):
+        return float(np.median([f[key] for f in rest]))
+
+    emit("actor", nvidia_smi=smi, frames=frames, bootstrap_frame=frames[0],
+         median_frame={k: med(k) for k in frames[0]}, wall_s=wall_s,
+         launches=launches, launches_predicted=want,
+         counts=dict(track_evals=n_track, refine_evals=be.refine_evals,
+                     refine_moved=[float(x) for x in moved],
+                     mapping_iterations=be.total_step, view_stats_renders=view_stats,
+                     eval_views=n_eval_views),
+         max_memory_allocated_bytes=int(peak),
+         metrics={k: v for k, v in m.items() if k not in ("wall_time_s",)},
+         gt_splats=10_000, capacity=MAP_CAP)
+    check(np.isfinite(poses).all() and m["nonfinite_poses"] == 0, "actor: a pose is not finite")
+    check(not m["diverged"], f"actor: the run diverged (health {m['health']})")
+    check(m["C"] >= 2, f"actor: {m['C']} keyframes")
+    check(m["ate"] < 0.06, f"actor: ATE {m['ate']} m >= 0.06")
+    check(launches == want, f"actor: launches {launches} != predicted {want}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "gslam_tpu_torch" / "csrc" / "blend.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1014,12 +1416,15 @@ def main() -> int:
     del point
     phase_slam_reference()
     slam_launches = phase_slam(smi)
+    phase_actor_reference()
+    actor_launches = phase_actor(smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
-    # launches: the three main paths; launches_by_path: each path's own
+    # launches: the four main paths; launches_by_path: each path's own
     # count, read just after that path ran with the counters set to 0 before it
-    by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches}
+    by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches,
+               "actor": actor_launches}
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
                     replaces=replaces[name], launches=sum(p[name] for p in by_path.values()),
                     launches_by_path={k: p[name] for k, p in by_path.items()},

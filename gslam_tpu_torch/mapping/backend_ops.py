@@ -9,9 +9,12 @@ Counterpart of gslam_tpu/mapping/backend_ops.py:
     on the window poses (keyframe 0 frozen) and the per-iteration opacity
     decay. It also returns dL/dmeans2d through a zero probe added to the
     projected means.
+  * `pose_refinement_lbfgs`: L-BFGS on the window's pose deltas alone,
+    against the photometric loss of the window's render (one launch of each
+    blend kernel per window camera and evaluation), the first keyframe and
+    padded slots pinned;
   * the render-only programs: `keyframe_decision_stats`,
     `render_view_stats`, `eval_views` and `visibility_pass`.
-`pose_refinement_lbfgs` is not ported yet (it needs opt/lbfgs.py).
 
 The window has `window_size` slots and a mask: padded slots read keyframe
 slot 0 and their writes are dropped. Every program runs on the device of
@@ -39,6 +42,7 @@ from gslam_tpu_torch.ops.losses import (
 )
 from gslam_tpu_torch.ops.rasterize import RenderConfig, RenderOutput, render_impl
 from gslam_tpu_torch.ops.ssim import ssim_per_image
+from gslam_tpu_torch.opt.lbfgs import lbfgs_impl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,6 +277,50 @@ def mapping_step(
         means2d_grad=wg.g_probe, n_pairs=wg.out.n_pairs,
     )
     return gmap, opt_state, kf, pose_opt, aux
+
+
+def pose_refinement_lbfgs(
+    gmap: GaussianMap,
+    kf: KeyframeStore,
+    window_idx: torch.Tensor,
+    window_mask: torch.Tensor,
+    K: torch.Tensor,
+    width: int,
+    height: int,
+    cfg: MapConfig = MapConfig(),
+):
+    """L-BFGS refinement of the window's poses on the photometric loss alone.
+    Returns (kf, f, n_evals): the store with the masked slots' deltas
+    written back, the final loss and the evaluations the search took."""
+    Wn = window_idx.shape[0]
+    safe_idx = torch.where(window_mask, window_idx, 0).to(torch.int64)
+    gt_imgs = kf.images[safe_idx]
+    pose_base = kf.pose_base[safe_idx]
+    exposures = kf.exposures[safe_idx]
+    Ks = K[None].expand(Wn, 3, 3)
+    x0 = torch.cat([kf.d_rot6[safe_idx], kf.d_t[safe_idx]], dim=-1).reshape(-1)
+
+    frozen = ~window_mask | (kf.frame_idx[safe_idx] == 0)
+    free = torch.repeat_interleave(~frozen, 9).to(torch.float32)
+    bg = _background(cfg, x0.device)
+
+    def loss_fn(x):
+        x_eff = x0 + (x - x0) * free  # frozen coords pinned to initial values
+        vec = x_eff.reshape(Wn, 9)
+        viewmats = pose_matrix(PoseDelta(pose_base, vec[:, :6], vec[:, 6:9]))
+        out = render_impl(**gmap.render_kwargs(), viewmats=viewmats, Ks=Ks, width=width,
+                          height=height, bg_rgb=bg, cfg=cfg.render)
+        rendered = apply_exposure(out.rgb, exposures)
+        return mapping_photometric(rendered, gt_imgs, out.beta, active_gs=cfg.active_gs,
+                                   cam_mask=window_mask)
+
+    res = lbfgs_impl(loss_fn, x0, max_iter=20, max_eval=25, history=10, lr=1.0,
+                     tol_change=1e-7)
+    with torch.no_grad():
+        vec = (x0 + (res.x - x0) * free).reshape(Wn, 9)
+        kf = kf._replace(d_rot6=_set_rows(kf.d_rot6, window_idx, window_mask, vec[:, :6]),
+                         d_t=_set_rows(kf.d_t, window_idx, window_mask, vec[:, 6:9]))
+    return kf, res.f, res.n_evals
 
 
 def _render_views(gmap: GaussianMap, poses, K, width, height, cfg: MapConfig

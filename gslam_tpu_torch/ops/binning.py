@@ -73,11 +73,14 @@ def bin_gaussians(
     offsets = torch.cumsum(counts, 0) - counts  # exclusive
     n_pairs = torch.sum(counts).to(torch.int32)
 
-    # a fixed max_span x max_span local grid per splat; the compact pair
-    # index j = dy * span_x + dx packs each splat's pairs at offsets[i]
-    k = torch.arange(max_span * max_span, device=dev)
-    dy = (k // max_span)[None, :]
-    dx = (k % max_span)[None, :]
+    # a fixed local grid per splat, as wide as a footprint can be: max_span,
+    # or the image's tile count where that is smaller (span_x <= tiles_x);
+    # the compact pair index j = dy * span_x + dx packs each splat's pairs
+    # at offsets[i]
+    gx, gy = min(max_span, tiles_x), min(max_span, tiles_y)
+    k = torch.arange(gx * gy, device=dev)
+    dy = (k // gx)[None, :]
+    dx = (k % gx)[None, :]
     pair_ok = (dx < span_x[:, None]) & (dy < span_y[:, None]) & valid[:, None]
     idx = offsets[:, None] + dy * span_x[:, None] + dx  # [N, K] int64
     tile = (ty0[:, None] + dy) * tiles_x + (tx0[:, None] + dx)

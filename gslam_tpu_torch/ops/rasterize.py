@@ -84,8 +84,8 @@ def project_cameras(means, quats, scales, alive, viewmats, Ks, width, height,
 def _bin_cameras(means2d, radii, depths, valid, width, height, cfg: RenderConfig
                  ) -> CameraBins:
     """Tile lists of each camera ([C, N] inputs), one camera at a time: the
-    binning's [N, max_span^2] pair grid is the largest tensor of a render,
-    and C of them at once would not pay for the launches they save."""
+    binning's pair grid (N by up to max_span^2) is the largest tensor of a
+    render, and C of them at once would not pay for the launches they save."""
     n = means2d.shape[1]
     ts = cfg.tile_size
     out = [bin_gaussians(means2d[c], radii[c], depths[c], valid[c], ts,

@@ -1,9 +1,14 @@
-"""Checkpoints of the splat map and of the fused runtime, as plain .npz.
+"""Checkpoints of the splat map and of both runtimes, as plain .npz.
 
-Counterpart of the fused half of gslam_tpu/runtime/checkpoint.py, with the
-JAX package's keys, so a checkpoint written by either package loads into
-the other:
+Counterpart of gslam_tpu/runtime/checkpoint.py, with the JAX package's
+keys, so a checkpoint written by either package loads into the other:
   * `save_map` / `load_map`: the splat buffer only (`gmap/<field>`);
+  * `save_checkpoint` / `restore_system`: a `SlamSystem` (the actor
+    runtime) mid-run: map, Adam moments (`adam_mu/`, `adam_nu/`,
+    `adam/count`), keyframe store (`kf/`), pose optimizer (`pose_opt/`),
+    `rng/key` (a uint32 pair), `K`, both actors' frames (`be_frames/`,
+    `fe_frames/`), the frontend's times and losses and the host
+    bookkeeping (`meta_json`);
   * `save_fused_checkpoint` / `load_fused_checkpoint`: every FusedState
     leaf under its path (`leaf/.gmap.means`, `leaf/.opt_state.mu['means']`,
     ...), `meta/format` = 2, `meta/shape` and the frames' metadata.
@@ -14,18 +19,21 @@ whose stream differs from JAX's.
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from gslam_tpu_torch import resolve_device
+from gslam_tpu_torch.core.camera import Camera
+from gslam_tpu_torch.io.frames import Frame
 from gslam_tpu_torch.mapping.backend_ops import PoseAdamState
 from gslam_tpu_torch.mapping.gaussians import (
-    TRAINABLE_FIELDS, GaussianMap, gaussian_map_from_numpy,
+    TRAINABLE_FIELDS, GaussianMap, gaussian_map_from_numpy, gaussian_map_to_numpy,
 )
-from gslam_tpu_torch.mapping.keyframes import keyframes_from_numpy
-from gslam_tpu_torch.mapping.optimizer import adam_state_from_numpy
+from gslam_tpu_torch.mapping.keyframes import keyframes_from_numpy, keyframes_to_numpy
+from gslam_tpu_torch.mapping.optimizer import adam_state_from_numpy, adam_state_to_numpy
 
 FORMAT = 2
 
@@ -45,6 +53,129 @@ def load_map(path, device: str | torch.device | None = None) -> tuple[GaussianMa
         fields = {k.split("/", 1)[1]: data[k] for k in data.files if k.startswith("gmap/")}
         extra = {k.split("/", 1)[1]: data[k] for k in data.files if k.startswith("extra/")}
     return gaussian_map_from_numpy(fields, device), extra
+
+
+# ---------------- the actor runtime's resumable checkpoints ----------------
+
+
+def _frames_to_arrays(frames, prefix):
+    """Pack stripped Frame trajectory state into arrays."""
+    n = len(frames)
+    eye = np.eye(4, dtype=np.float32)
+
+    def stack(values, default, shape):
+        return (np.stack([np.asarray(v, np.float32) if v is not None else default
+                          for v in values]) if n else np.zeros(shape, np.float32))
+
+    return {
+        f"{prefix}/index": np.asarray([f.index for f in frames], np.int64),
+        f"{prefix}/timestamp": np.asarray(
+            [f.timestamp if f.timestamp is not None else 0.0 for f in frames], np.float64),
+        f"{prefix}/est_pose": stack([f.est_pose for f in frames], eye, (0, 4, 4)),
+        f"{prefix}/has_est": np.asarray([f.est_pose is not None for f in frames], bool),
+        f"{prefix}/gt_pose": stack([f.gt_pose for f in frames], eye, (0, 4, 4)),
+        f"{prefix}/has_gt": np.asarray([f.gt_pose is not None for f in frames], bool),
+        f"{prefix}/exposure": stack([f.exposure for f in frames], np.zeros(2, np.float32),
+                                    (0, 2)),
+    }
+
+
+def _frames_from_arrays(data, prefix, camera):
+    frames = []
+    for i in range(len(data[f"{prefix}/index"])):
+        frames.append(Frame(
+            image=None,
+            timestamp=float(data[f"{prefix}/timestamp"][i]),
+            camera=camera,
+            index=int(data[f"{prefix}/index"][i]),
+            gt_pose=data[f"{prefix}/gt_pose"][i] if data[f"{prefix}/has_gt"][i] else None,
+            est_pose=data[f"{prefix}/est_pose"][i] if data[f"{prefix}/has_est"][i] else None,
+            exposure=data[f"{prefix}/exposure"][i],
+        ))
+    return frames
+
+
+def save_checkpoint(path, system):
+    """Serialize a SlamSystem mid-run: everything `restore_system` needs to
+    continue it."""
+    be, fe = system.backend, system.frontend
+    arrays = {f"gmap/{k}": v for k, v in gaussian_map_to_numpy(be.gmap).items()}
+    for k, v in adam_state_to_numpy(be.opt_state).items():
+        arrays["adam/count" if k == "count" else "adam_" + k] = v
+    arrays.update({f"kf/{k}": v for k, v in keyframes_to_numpy(be.kf).items()})
+    arrays.update({f"pose_opt/{k}": v.cpu().numpy() for k, v in be.pose_opt._asdict().items()})
+    arrays["rng/key"] = be.key.numpy().astype(np.uint32)
+    arrays["K"] = be.K.cpu().numpy()
+    arrays.update(_frames_to_arrays(be.frames, "be_frames"))
+    arrays.update(_frames_to_arrays(fe.frames, "fe_frames"))
+    arrays["fe/track_times"] = np.asarray(fe.track_times, np.float64)
+    arrays["fe/losses"] = np.asarray(fe.losses, np.float64)
+    meta = {
+        "kf_order": be.kf_order,
+        "kf_frame_idx": {str(k): v for k, v in be.kf_frame_idx.items()},
+        "pose_graph": {str(k): sorted(v) for k, v in be.pose_graph.items()},
+        "total_step": be.total_step,
+        "pause_map_optim": be.pause_map_optim,
+        "n_keyframes_added": system.n_keyframes_added,
+        "width": system.width,
+        "height": system.height,
+    }
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **arrays)
+
+
+def restore_system(path, system) -> int:
+    """Restore a SlamSystem saved by `save_checkpoint` (of either package)
+    onto the system's device; returns the next frame index to process."""
+    with np.load(path, allow_pickle=False) as data:
+        d = {k: data[k] for k in data.files}
+    be, fe = system.backend, system.frontend
+    dev = be.device
+    meta = json.loads(bytes(d["meta_json"]).decode())
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
+
+    be.gmap = gaussian_map_from_numpy(sub("gmap/"), dev)
+    # the saved buffer may have grown beyond the configured capacity
+    be.capacity = be.gmap.capacity
+    adam = {f"{k}/{f}": v for k in ("mu", "nu") for f, v in sub(f"adam_{k}/").items()}
+    adam["count"] = d["adam/count"]
+    be.opt_state = adam_state_from_numpy(adam, dev)
+    be.kf = keyframes_from_numpy(sub("kf/"), dev)
+    be.kf_capacity = be.kf.capacity
+    be.pose_opt = PoseAdamState(
+        mu=torch.from_numpy(np.array(d["pose_opt/mu"], np.float32)).to(dev),
+        nu=torch.from_numpy(np.array(d["pose_opt/nu"], np.float32)).to(dev),
+        count=torch.from_numpy(np.array(d["pose_opt/count"], np.int32)).to(dev))
+    be.key = torch.from_numpy(d["rng/key"].astype(np.int64))
+    be.K = torch.from_numpy(np.array(d["K"], np.float32)).to(dev)
+    be.kf_order = [int(s) for s in meta["kf_order"]]
+    be.kf_frame_idx = {int(k): int(v) for k, v in meta["kf_frame_idx"].items()}
+    be.frame_slot = {v: k for k, v in be.kf_frame_idx.items()}
+    be.pose_graph = {int(k): set(v) for k, v in meta["pose_graph"].items()}
+    be.total_step = int(meta["total_step"])
+    be.pause_map_optim = bool(meta["pause_map_optim"])
+    system.n_keyframes_added = int(meta["n_keyframes_added"])
+
+    cam = Camera(K=torch.from_numpy(np.array(d["K"], np.float32)),
+                 width=int(meta["width"]), height=int(meta["height"]))
+    be.frames = _frames_from_arrays(d, "be_frames", cam)
+    fe.frames = _frames_from_arrays(d, "fe_frames", cam)
+    fe.track_times = [float(t) for t in d["fe/track_times"]]
+    fe.losses = [float(x) for x in d["fe/losses"]]
+
+    # the frontend's synced snapshot, made anew from the restored map
+    be._refresh_sync_payload()
+    fe.apply_sync(be.sync_payload())
+    next_index = (max(f.index for f in fe.frames) + 1) if fe.frames else 0
+    system.start_index = next_index
+    return next_index
+
+
+# ---------------- fused-runtime checkpoints ----------------
 
 
 def state_leaves(state) -> dict:

@@ -1,6 +1,8 @@
 """Per-frame camera tracking against a frozen Gaussian map.
 
-Counterpart of gslam_tpu/tracking/track.py for method="igs": the pose
+Counterpart of gslam_tpu/tracking/track.py for method="igs" (and
+"warp", which the JAX tracker also runs as igs: the frontend tracks by
+dense warp alignment only once a synced reference render exists): the pose
 delta (Zhou-6D rotation + translation) and the affine exposure pair are
 packed into one 11-vector and refined by Adam warm-up steps followed by
 L-BFGS with strong-Wolfe line search. Every loss evaluation renders the
@@ -36,7 +38,7 @@ from gslam_tpu_torch.opt.lbfgs_compact import warmup_lbfgs_impl
 
 @dataclasses.dataclass(frozen=True)
 class TrackingConfig:
-    method: str = "igs"  # 'igs' (L-BFGS); 'gn' is not ported yet
+    method: str = "igs"  # 'igs' (L-BFGS) | 'warp' (frontend); 'gn' is not ported yet
     photometric_loss: str = "active-nerf"  # 'l1' | 'mse' | 'active-nerf'
     pose_lr: float = 0.002
     warmup_steps: int = 10
@@ -84,7 +86,7 @@ def constant_motion_prior(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.T
 
 
 def _check_supported(cfg: TrackingConfig):
-    if cfg.method != "igs":
+    if cfg.method == "gn":
         raise NotImplementedError(
             f"tracking method {cfg.method!r} is not ported yet (ROADMAP A10: "
             "Gauss-Newton needs forward mode through the blend)")

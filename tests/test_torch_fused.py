@@ -22,9 +22,7 @@ from gslam_tpu_torch.runtime.fused import FusedConfig, FusedSlam  # noqa: E402
 from gslam_tpu_torch.tracking.track import TrackingConfig  # noqa: E402
 
 CPU = "cpu"
-# max_span=5 covers every tile of the 80x60 and 64x48 images, so the
-# binning is the default's at a fifth of its CPU cost
-RCFG = RenderConfig(tile_capacity=64, pairs_per_gaussian=8, max_span=5)
+RCFG = RenderConfig(tile_capacity=64, pairs_per_gaussian=8)
 
 
 def small_fused_cfg(**kw):

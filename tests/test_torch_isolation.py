@@ -43,7 +43,12 @@ def test_sources_found():
             "gslam_tpu_torch/runtime/fused.py", "gslam_tpu_torch/runtime/checkpoint.py",
             "gslam_tpu_torch/mapping/insertion.py", "gslam_tpu_torch/ops/knn.py",
             "gslam_tpu_torch/core/camera.py", "gslam_tpu_torch/io/frames.py",
-            "gslam_tpu_torch/io/synthetic.py", "gslam_tpu_torch/eval/trajectory.py"} <= names
+            "gslam_tpu_torch/io/synthetic.py", "gslam_tpu_torch/eval/trajectory.py",
+            "gslam_tpu_torch/opt/lbfgs.py", "gslam_tpu_torch/tracking/warp.py",
+            "gslam_tpu_torch/runtime/messages.py", "gslam_tpu_torch/runtime/frontend.py",
+            "gslam_tpu_torch/runtime/backend.py", "gslam_tpu_torch/runtime/system.py",
+            "gslam_tpu_torch/eval/metrics.py", "gslam_tpu_torch/viz/visualization.py",
+            "gslam_tpu_torch/io/stream.py"} <= names
 
 
 def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
@@ -52,6 +57,7 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
     from gslam_tpu_torch.mapping.gaussians import empty_map, gaussian_map_from_numpy
     from gslam_tpu_torch.mapping.keyframes import empty_keyframes
     from gslam_tpu_torch.runtime.fused import FusedConfig, FusedSlam, init_fused_state
+    from gslam_tpu_torch.runtime.system import SlamConfig, SlamSystem
     from gslam_tpu_torch.tracking.track import track_frame
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -73,6 +79,8 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
         init_fused_state(FusedConfig(max_frames=2), 4, 2, 16, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         FusedSlam(FusedConfig(max_frames=2), 16, 16, capacity=4, kf_capacity=2).run([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(SlamConfig(capacity=4, kf_capacity=2), 16, 16)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
