@@ -23,7 +23,18 @@ Phases, one JSON line each:
      320x240, fx=280, tile_capacity=512): 10 ground-truth frames rendered by
      the port, tracked chained with the default igs configuration; then one
      frame with a 3-level pyramid. The kernels' launch counters must show
-     one forward per render and one forward + one backward per evaluation.
+     one forward + one backward per evaluation.
+  4a. gn_reference: flat Gauss-Newton (gn_iters=10) on
+     tests/test_gauss_newton.py's scene (96x72), mono and RGB-D, on the card
+     and on the CPU: f0 and the first JtJ, Jtr within rtol 1e-4, the accept
+     sequence and render passes equal with each loss within 1e-4 of f0
+     (where they part is printed; the losses just before it must be below
+     1e-4 of f0), the final pose within 1e-4 m / 1e-4 rad.
+  4b. gn: the same 10 chained frames tracked with method="gn", pyr3 x 8 LM
+     iterations (bench.py's accuracy-proven point) and flat x 10: ms per
+     frame, host syncs, LM iterations and render passes per level, peak
+     memory; final error < 1 cm, no rejection, no blend launch (GN blends
+     through the forward-mode route).
   5. mapping_reference: 3 mapping_steps of a small scene (a window of 3
      keyframes and a padded slot) on the card and on the CPU: losses, the
      first step's gradient norms, radii and n_touched must agree.
@@ -76,6 +87,17 @@ Phases, one JSON line each:
      Checks: finite poses, not diverged, C >= 2, ATE < 0.06 m, and launch
      counters equal to what the tracking and refinement evaluations, the
      mapping iterations and the view, decision and eval renders predict.
+ 11. cli: the fifth main path, main_torch.main in this process as the
+     repo's runs use main.py: the raytraced room at 320x240, 8 frames,
+     --use-gt-depths and GN pyr3 x 8, every other flag main.py's default; the
+     actor runtime, then the same frames through an npz (save_dataset_npz,
+     under chiprun_out/cli/) with --fused --chunk 1 --sync-every 4. Wall
+     time, frame ms, C, N, ATE (printed, not bounded), PSNR/SSIM, launches;
+     checks artifacts, a finite [8, 4, 4] trajectory and both kernels
+     launched in each run. Then both kernels against their plain version
+     (as in phase 2) on the actor run's keyframe rows at this path's own
+     shape, main.py's default tile_capacity (T=300, M=256, where blend_fwd
+     takes its own depth segments).
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -368,6 +390,10 @@ def mapping_rows(point):
     return [r.xy, r.con, r.op, r.feat], ts, -(-W // ts), cfg.render
 
 
+TOLERANCE = ("float outputs: max(|kernel - fp64| - 1e-4 |fp64|) <= 2 max|plain32 - fp64| "
+             "+ 1e-6 max|fp64|; n_touched within 1 on <= 0.1% of slots")
+
+
 def phase_kernels(gmap, K, tcfg, point, smi):
     import torch
 
@@ -379,11 +405,8 @@ def phase_kernels(gmap, K, tcfg, point, smi):
     check(mapping["T"] == 300 and mapping["M"] == 512,
           f"unexpected mapping shape {mapping['T']}x{mapping['M']}")
     emit("kernels_vs_plain", nvidia_smi=smi, full_res=full, pyramid_l1=half,
-         mapping_full_res=mapping,
-         tolerance="float outputs: max(|kernel - fp64| - 1e-4 |fp64|) <= "
-                   "2 max|plain32 - fp64| + 1e-6 max|fp64|; n_touched within 1 "
-                   "on <= 0.1% of slots")
-    return full
+         mapping_full_res=mapping, tolerance=TOLERANCE)
+    return {"tracking_full_res": full, "pyramid_l1": half, "mapping_full_res": mapping}
 
 
 def phase_reference():
@@ -422,25 +445,22 @@ def phase_reference():
     check(diff <= 2e-3, f"card and CPU poses differ by {diff}")
 
 
-def phase_tracking(gmap, K, tcfg, xis, smi):
+def tracking_frames(gmap, K, cfg, xis):
+    """The tracking point's 10 chained ground-truth poses (each xi applied to
+    the last) and the port's fused render at each, on the card."""
     import torch
 
     from gslam_tpu_torch.core.transforms import se3_exp
-    from gslam_tpu_torch.ops import blend
     from gslam_tpu_torch.ops.rasterize import compute_bins
     from gslam_tpu_torch.ops.track_fused import gather_tracking_tiles, render_tracking_fused
-    from gslam_tpu_torch.tracking.track import constant_motion_prior, track_frame
 
-    cfg = tcfg.render
     poses, cur = [], torch.eye(4)
     for i in range(N_FRAMES):
         cur = se3_exp(torch.from_numpy(xis[i])) @ cur
         poses.append(cur.cuda())
-
-    blend.reset_launches()
     gts = []
     with torch.no_grad():
-        for p in poses:  # ground truth: the port's fused render at each pose
+        for p in poses:
             bins = compute_bins(gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
                                 p[None], K[None], W, H, cfg)
             rgb = render_tracking_fused(gather_tracking_tiles(gmap, bins), p, K, W, H,
@@ -449,15 +469,32 @@ def phase_tracking(gmap, K, tcfg, xis, smi):
     torch.cuda.synchronize()
     check(all(bool(torch.isfinite(g).all()) and g.shape == (H, W, 3) for g in gts),
           "ground-truth renders not finite or misshaped")
+    return poses, gts
 
+
+def chained_prior(est):
+    """Identity, then the last pose, then the constant-motion prior."""
+    import torch
+
+    from gslam_tpu_torch.tracking.track import constant_motion_prior
+
+    if not est:
+        return torch.eye(4, device="cuda")
+    if len(est) == 1:
+        return est[-1]
+    return constant_motion_prior(est[-2], est[-1])
+
+
+def phase_tracking(gmap, K, tcfg, poses, gts, smi):
+    import torch
+
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.tracking.track import track_frame
+
+    blend.reset_launches()
     est, exposure, frames = [], torch.zeros(2, device="cuda"), []
     for i in range(N_FRAMES):
-        if not est:
-            prior = torch.eye(4, device="cuda")
-        elif len(est) == 1:
-            prior = est[-1]
-        else:
-            prior = constant_motion_prior(est[-2], est[-1])
+        prior = chained_prior(est)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -482,8 +519,8 @@ def phase_tracking(gmap, K, tcfg, xis, smi):
          mean_ms=float(np.mean([f["ms"] for f in frames])))
     check(not any(f["rejected"] for f in frames), "a frame was rejected")
     check(final_err < 0.01, f"final translation error {final_err} m >= 1 cm")
-    check(launches["blend_fwd"] == n_evals + N_FRAMES,
-          f"forward launches {launches['blend_fwd']} != {n_evals} evals + {N_FRAMES}")
+    check(launches["blend_fwd"] == n_evals,
+          f"forward launches {launches['blend_fwd']} != {n_evals} evals")
     check(launches["blend_bwd"] == n_evals,
           f"backward launches {launches['blend_bwd']} != {n_evals} evals")
 
@@ -505,6 +542,180 @@ def phase_tracking(gmap, K, tcfg, xis, smi):
     check(pyr["launches"]["blend_fwd"] == r.n_evals == pyr["launches"]["blend_bwd"],
           f"pyramid launches {pyr['launches']} != {r.n_evals} evals")
     return launches
+
+
+def gn_start_and_run(ds, depth, cfg, dev):
+    """Flat Gauss-Newton on frame 1 of `ds` from frame 0's pose on `dev`:
+    the start loss f0, the first normal system at x0, the LM loop's render
+    passes and per-iteration (accepted, loss) steps, and the final pose."""
+    import torch
+
+    from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
+    from gslam_tpu_torch.tracking.track import GaussNewtonProblem, levenberg_marquardt
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    gmap = gaussian_map_from_numpy(ds.gt_map_fields, device=dev)
+    prob = GaussNewtonProblem(gmap, t(ds.poses[0]), t(np.zeros(2)), t(ds.images[1]),
+                              t(ds.camera.K), ds.camera.width, ds.camera.height, cfg,
+                              None if depth is None else t(depth))
+    x0 = prob.x0()
+    f0 = prob.loss(*prob.residuals(x0))
+    JtJ, Jtr = prob.normal_equations(x0)
+    x, _f, n_evals, steps = levenberg_marquardt(prob, cfg)
+    with torch.no_grad():
+        pose = prob.unpack(x)[0]
+    return dict(f0=float(f0), JtJ=JtJ.cpu().double().numpy(), Jtr=Jtr.cpu().double().numpy(),
+                n_evals=n_evals, steps=steps, pose=pose.cpu().numpy())
+
+
+def phase_gn_reference():
+    """Flat Gauss-Newton (gn_iters=10) on tests/test_gauss_newton.py's scene
+    (the port's synthetic room, 96x72, 1,500 splats, seed 0, frame 1 from
+    frame 0's pose), mono and RGB-D, on the card and on the CPU: f0 and the
+    first JtJ, Jtr within rtol 1e-4 (norm-relative), the accept sequence and
+    the render-pass count equal, each iteration's loss within 1e-4 of f0, the
+    final pose within 1e-4 m / 1e-4 rad. If the accept sequences part, the
+    phase prints where and holds the iterations before it (equal flags, each
+    loss within 1e-4 of f0) and that both losses just before it are below
+    1e-4 of f0, the float32 floor of the objective (tests/test_torch_gn.py's
+    rule); it still holds the final pose."""
+    import torch
+
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.ops.rasterize import RenderConfig, render
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    w, h = 96, 72
+    ds = SyntheticDataset(seq_len=4, width=w, height=h, n_splats=1500, seed=0,
+                          motion_scale=0.03, device="cpu")
+    r = RenderConfig(tile_capacity=128, tile_chunk=16)
+    with torch.no_grad():
+        out = render(**ds.gt_map_fields, viewmats=ds.poses[1][None], Ks=ds.camera.K[None],
+                     width=w, height=h, cfg=r, device="cpu")
+    depth = (out.depth[0] / torch.clamp(out.alpha[0], min=1e-3)).numpy()
+
+    def rel(a, b):
+        return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                     / max(np.linalg.norm(np.asarray(b)), 1e-30))
+
+    report = {}
+    for mode in ("mono", "rgbd"):
+        cfg = TrackingConfig(method="gn", gn_iters=10, use_gt_depths=mode == "rgbd", render=r)
+        card, cpu = (gn_start_and_run(ds, depth if mode == "rgbd" else None, cfg, dev)
+                     for dev in ("cuda", "cpu"))
+        seq, cseq = [a for a, _ in card["steps"]], [a for a, _ in cpu["steps"]]
+        part = next((k for k, (a, b) in enumerate(zip(seq, cseq)) if a != b), None)
+        if part is None and len(seq) != len(cseq):
+            part = min(len(seq), len(cseq))
+        agree = list(zip(card["steps"], cpu["steps"]))[:part]
+        floor = (max(card["steps"][part - 1][1], cpu["steps"][part - 1][1]) / cpu["f0"]
+                 if part else None)
+        dt, drot = pose_gap(card["pose"][None], cpu["pose"][None])
+        report[mode] = dict(
+            f0=[card["f0"], cpu["f0"]], f0_rel=rel(card["f0"], cpu["f0"]),
+            JtJ_rel=rel(card["JtJ"], cpu["JtJ"]), Jtr_rel=rel(card["Jtr"], cpu["Jtr"]),
+            n_evals=[card["n_evals"], cpu["n_evals"]], steps_card=card["steps"],
+            steps_cpu=cpu["steps"], parted_at=part,
+            loss_gap_over_f0=max((abs(a[1] - b[1]) for a, b in agree), default=0.0) / cpu["f0"],
+            loss_before_part_over_f0=floor, pose_gap_m=dt, rot_gap_rad=drot)
+    emit("gn_reference", **report,
+         tolerance="f0, JtJ, Jtr rtol 1e-4 (norm-relative); accept sequence and n_evals "
+                   "equal, each iteration's loss within 1e-4 f0, unless they part (printed: "
+                   "then the iterations before it within 1e-4 f0 and both losses just "
+                   "before it below 1e-4 f0); final pose within 1e-4 m / 1e-4 rad")
+    for mode, g in report.items():
+        where = f"gn_reference {mode}"
+        check(max(g["f0_rel"], g["JtJ_rel"], g["Jtr_rel"]) <= 1e-4,
+              f"{where}: start differs: f0 {g['f0_rel']}, JtJ {g['JtJ_rel']}, "
+              f"Jtr {g['Jtr_rel']}")
+        check(g["loss_gap_over_f0"] <= 1e-4,
+              f"{where}: losses differ by {g['loss_gap_over_f0']} of f0 before parting")
+        if g["parted_at"] is None:
+            check(g["n_evals"][0] == g["n_evals"][1], f"{where}: n_evals {g['n_evals']}")
+        else:
+            check(g["parted_at"] > 0 and g["loss_before_part_over_f0"] < 1e-4,
+                  f"{where}: the sequences part at {g['parted_at']} above the float32 "
+                  f"floor (loss {g['loss_before_part_over_f0']} of f0)")
+        check(g["pose_gap_m"] <= 1e-4 and g["rot_gap_rad"] <= 1e-4,
+              f"{where}: poses differ by {g['pose_gap_m']} m, {g['rot_gap_rad']} rad")
+
+
+def phase_gn(gmap, K, tcfg, poses, gts, smi):
+    """The Gauss-Newton point of bench.py:221-232 at full width: the tracking
+    point's map and 10 chained frames, tracked with method="gn", pyr3 x 8
+    LM iterations and then flat with 10. Per frame: CUDA-event ms, host ms,
+    host syncs, render passes, each level's LM iterations, render passes and
+    rejected steps; peak memory; the final translation error (< 1 cm, no
+    guard rejection) and the blend kernels' launches (none: GN's route
+    blends in plain torch ops, as the JAX tracker pins its jnp blend)."""
+    import warnings
+
+    import torch
+
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.tracking import track
+
+    runs = {}
+    for name, over in (("pyr3x8", dict(pyramid_levels=3, gn_iters=8)),
+                       ("flat10", dict(pyramid_levels=1, gn_iters=10))):
+        cfg = dataclasses.replace(tcfg, method="gn", **over)
+        levels, orig = [], track.levenberg_marquardt
+
+        def lm(prob, c):
+            out = orig(prob, c)
+            levels.append(dict(width=prob.width, iterations=len(out[3]), passes=out[2],
+                               rejected_steps=sum(not a for a, _ in out[3])))
+            return out
+
+        track.levenberg_marquardt = lm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        blend.reset_launches()
+        est, exposure, frames = [], torch.zeros(2, device="cuda"), []
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                for i in range(N_FRAMES):
+                    prior = chained_prior(est)
+                    n_lv, n_sync = len(levels), len(seen)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    a.record()
+                    r = track.track_frame(gmap, prior, exposure, gts[i], K, W, H, cfg)
+                    b.record()
+                    syncs = len(seen) - n_sync
+                    b.synchronize()
+                    frames.append(dict(
+                        frame=i, ms=a.elapsed_time(b), host_ms=1e3 * (time.perf_counter() - t0),
+                        host_syncs=syncs, n_evals=r.n_evals, rejected=r.rejected,
+                        levels=levels[n_lv:], finite=bool(torch.isfinite(r.pose).all()),
+                        t_err_m=float(torch.linalg.norm(r.pose[:3, 3] - poses[i][:3, 3]))))
+                    est.append(r.pose)
+                    exposure = r.exposure
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            track.levenberg_marquardt = orig
+        runs[name] = dict(
+            frames=frames, launches=dict(blend.launches),
+            max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+            mean_ms=float(np.mean([f["ms"] for f in frames])),
+            median_ms=float(np.median([f["ms"] for f in frames])),
+            mean_ms_after_first=float(np.mean([f["ms"] for f in frames[1:]])),
+            sum_n_evals=sum(f["n_evals"] for f in frames),
+            rejections=sum(f["rejected"] for f in frames),
+            final_t_err_m=frames[-1]["t_err_m"])
+    emit("gn", nvidia_smi=smi, **runs)
+    for name, g in runs.items():
+        check(all(f["finite"] for f in g["frames"]), f"gn {name}: a pose is not finite")
+        check(g["rejections"] == 0, f"gn {name}: {g['rejections']} frames rejected")
+        check(g["final_t_err_m"] < 0.01,
+              f"gn {name}: final translation error {g['final_t_err_m']} m >= 1 cm")
+        check(not any(g["launches"].values()),
+              f"gn {name}: the forward-mode route launched {g['launches']}")
 
 
 def small_mapping_scene(device):
@@ -1382,6 +1593,136 @@ def phase_actor(smi):
     return launches
 
 
+CLI_FRAMES = 8
+
+
+def cli_rows(system):
+    """The blend's rows of the cli actor run's first keyframe, as its
+    mapping renders gather them: the raytraced room's map at main.py's
+    default tile_capacity (T=300, M=256)."""
+    import torch
+
+    from gslam_tpu_torch.ops.rasterize import render_rows
+
+    be = system.backend
+    cfg = be.cfg.render
+    ts = cfg.tile_size
+    with torch.no_grad():
+        r = render_rows(**be.gmap.render_kwargs(), viewmats=be.kf.poses()[:1],
+                        Ks=be.K[None], width=W, height=H, cfg=cfg)
+    return [r.xy, r.con, r.op, r.feat], ts, -(-W // ts), cfg
+# main_torch's flags for the cli phase: the raytraced room at 320x240 with
+# the repo's gate configuration (runs/r5_gate_gn/args.txt), every other flag
+# main.py's default (capacity 2^17, kf-capacity 64, tile_capacity 256)
+CLI_FLAGS = ["--width", str(W), "--height", str(H), "--seq-len", str(CLI_FRAMES),
+             "--seed", "1", "--motion-scale", "0.03", "--use-gt-depths",
+             "--set", "tracking.method=gn", "--set", "tracking.pyramid_levels=3",
+             "--set", "tracking.gn_iters=8"]
+
+
+def phase_cli(smi):
+    """The fifth main path, the command line as the repo's runs use it:
+    main_torch.main in this process, first on the default actor runtime over
+    the raytraced room (--dataset raytrace), then over the same 8 frames
+    written with save_dataset_npz under chiprun_out/cli/ and read back with
+    --dataset npz --fused --chunk 1 --sync-every 4. Each run's launch
+    counters are set to 0 just before it and read just after. Prints wall
+    time, per-frame CUDA-event ms (median of the frames after the first), C,
+    N, ATE, PSNR/SSIM and launches; fails on a crash, a non-finite pose, a
+    missing artifact, a trajectory.npy that is not [8, 4, 4], or a blend
+    kernel that was not launched. Then holds both kernels against their plain
+    version at this path's own shape (cli_rows, compare_and_time) and returns
+    (launches, that comparison). ATE is printed, not bounded: the JAX
+    package's own fused GN gate diverged on its raytraced room
+    (runs/r5_gate_gn/metrics.json)."""
+    import os
+
+    import torch
+
+    import main_torch
+    from gslam_tpu_torch.io.npz import save_dataset_npz
+    from gslam_tpu_torch.io.raytrace import RaytracedDataset
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.runtime.system import SlamSystem
+
+    out_dir = ROOT / "chiprun_out" / "cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    npz = out_dir / f"raytrace_{W}x{H}_{CLI_FRAMES}.npz"
+    save_dataset_npz(RaytracedDataset(seq_len=CLI_FRAMES, width=W, height=H, seed=1,
+                                      motion_scale=0.03), npz)
+    actor_clocks, actor_systems, run_actor = [], [], SlamSystem.run
+
+    def clocked_run(system, dataset):
+        actor_systems.append(system)
+        with ActorClock(system) as clock:
+            actor_clocks.append(clock)
+            return run_actor(system, dataset)
+
+    runs = {}
+    cwd = os.getcwd()
+    os.chdir(out_dir)  # main_torch writes runs/<run-name>/ under the working directory
+    try:
+        for name, argv in (("actor", ["--dataset", "raytrace", *CLI_FLAGS]),
+                           ("fused", ["--dataset", "npz", "--scene", str(npz), "--fused",
+                                      "--chunk", "1", "--sync-every", "4", *CLI_FLAGS])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            blend.reset_launches()
+            t0 = time.perf_counter()
+            if name == "actor":
+                SlamSystem.run = clocked_run
+                try:
+                    m = main_torch.main(argv + ["--run-name", name])
+                finally:
+                    SlamSystem.run = run_actor
+                frames = [f["frame_ms"] for f in actor_clocks[-1].split()]
+            else:
+                with FrameClock() as clock:
+                    m = main_torch.main(argv + ["--run-name", name])
+                frames = [f["step_ms"] for f in clock.split()]
+            torch.cuda.synchronize()
+            run_dir = out_dir / "runs" / name
+            traj = (np.load(run_dir / "trajectory.npy")
+                    if (run_dir / "trajectory.npy").is_file() else None)
+            need = ("metrics.json", "args.txt", "trajectory.npy") + (
+                ("splats.npz",) if name == "actor" else ("telemetry.npz",))
+            runs[name] = dict(
+                wall_s=time.perf_counter() - t0, launches=dict(blend.launches),
+                frame_ms=frames, bootstrap_ms=frames[0],
+                median_later_frame_ms=float(np.median(frames[1:])),
+                max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+                missing=[f for f in need if not (run_dir / f).is_file()],
+                trajectory_shape=None if traj is None else list(traj.shape),
+                trajectory_finite=traj is not None and bool(np.isfinite(traj).all()),
+                metrics={k: m.get(k) for k in ("C", "N", "L", "ate", "ate_rmse", "psnr",
+                                               "ssim", "health", "diverged",
+                                               "nonfinite_poses", "mean_track_evals",
+                                               "total_map_iters", "kf_frames")})
+    finally:
+        os.chdir(cwd)
+    emit("cli", nvidia_smi=smi, flags=CLI_FLAGS, **runs)
+    for name, c in runs.items():
+        where = f"cli {name}"
+        check(not c["missing"], f"{where}: missing artifacts {c['missing']}")
+        check(c["trajectory_shape"] == [CLI_FRAMES, 4, 4],
+              f"{where}: trajectory.npy is {c['trajectory_shape']}")
+        check(c["trajectory_finite"] and c["metrics"]["nonfinite_poses"] == 0,
+              f"{where}: a pose is not finite")
+        check(all(v > 0 for v in c["launches"].values()),
+              f"{where}: a blend kernel was not launched: {c['launches']}")
+    launches = {k: sum(c["launches"][k] for c in runs.values()) for k in blend.launches}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = compare_and_time(*cli_rows(actor_systems[-1]), gen)
+    emit("kernels_vs_plain_cli", nvidia_smi=smi, cli_full_res=shape, tolerance=TOLERANCE)
+    check(shape["T"] == 300 and shape["M"] == 256,
+          f"unexpected cli shape {shape['T']}x{shape['M']}")
+    return launches, shape
+
+
+BY_SHAPE = ("max_abs_err", "err_over_limit", "ms", "plain_ms", "bound_ms", "bound_by",
+            "segments")
+
+
 def main() -> int:
     if not (ROOT / "gslam_tpu_torch" / "csrc" / "blend.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1408,9 +1749,14 @@ def main() -> int:
     tcfg = TrackingConfig(render=RenderConfig(tile_capacity=512, pairs_per_gaussian=8))
 
     point = mapping_point()
-    full = phase_kernels(gmap, K, tcfg, point, smi)
+    shapes = phase_kernels(gmap, K, tcfg, point, smi)
+    full = shapes["tracking_full_res"]
     phase_reference()
-    launches = phase_tracking(gmap, K, tcfg, xis, smi)
+    poses, gts = tracking_frames(gmap, K, tcfg.render, xis)
+    launches = phase_tracking(gmap, K, tcfg, poses, gts, smi)
+    phase_gn_reference()
+    phase_gn(gmap, K, tcfg, poses, gts, smi)
+    del poses, gts
     phase_mapping_reference()
     map_launches = phase_mapping(point, smi)
     del point
@@ -1418,20 +1764,26 @@ def main() -> int:
     slam_launches = phase_slam(smi)
     phase_actor_reference()
     actor_launches = phase_actor(smi)
+    cli_launches, shapes["cli_full_res"] = phase_cli(smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
-    # launches: the four main paths; launches_by_path: each path's own
-    # count, read just after that path ran with the counters set to 0 before it
+    # launches: the five main paths; launches_by_path: each path's own
+    # count, read just after that path ran with the counters set to 0 before
+    # it. The headline numbers are the tracking rows (T=300, M=512); by_shape
+    # holds every shape the paths give the kernels
     by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches,
-               "actor": actor_launches}
+               "actor": actor_launches, "cli": cli_launches}
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
                     replaces=replaces[name], launches=sum(p[name] for p in by_path.values()),
                     launches_by_path={k: p[name] for k, p in by_path.items()},
                     max_abs_err=full[name]["max_abs_err"], ms=full[name]["ms"],
                     ms_back_to_back=full[name]["ms_back_to_back"],
                     plain_ms=full[name]["plain_ms"], bound_ms=full[name]["bound_ms"],
-                    bound_by=full[name]["bound_by"], library_ms=None)
+                    bound_by=full[name]["bound_by"], library_ms=None,
+                    by_shape={k: {f: r[name][f] for f in BY_SHAPE if f in r[name]}
+                              | {"T": r["T"], "M": r["M"]}
+                              for k, r in shapes.items()})
                for name in ("blend_fwd", "blend_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", total_s=time.perf_counter() - t_start)

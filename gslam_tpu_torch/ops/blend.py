@@ -40,18 +40,20 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------- plain torch
 
 
-def _pixel_grid(T: int, ts: int, tiles_x: int, device) -> tuple:
-    """Pixel coordinates [T, P, 1] of every tile's ts*ts pixels."""
-    t = torch.arange(T, device=device)
+def _pixel_grid(T: int, ts: int, tiles_x: int, device, first_tile: int = 0) -> tuple:
+    """Pixel coordinates [T, P, 1] of the ts*ts pixels of tiles
+    first_tile .. first_tile + T - 1."""
+    t = torch.arange(first_tile, first_tile + T, device=device)
     k = torch.arange(ts * ts, device=device)
     px = ((t % tiles_x) * ts)[:, None] + (k % ts)[None, :]
     py = ((t // tiles_x) * ts)[:, None] + (k // ts)[None, :]
     return px.to(torch.float32)[..., None], py.to(torch.float32)[..., None]
 
 
-def _alpha(xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp):
-    """[T, P, M] effective alpha and what its gradient needs."""
-    px, py = _pixel_grid(xy.shape[0], ts, tiles_x, xy.device)
+def _alpha(xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp, first_tile=0):
+    """[T, P, M] effective alpha and what its gradient needs; row t is tile
+    first_tile + t."""
+    px, py = _pixel_grid(xy.shape[0], ts, tiles_x, xy.device, first_tile)
     dx = px - xy[:, 0:1, :]
     dy = py - xy[:, 1:2, :]
     ca, cb, cc = con[:, 0:1, :], con[:, 1:2, :], con[:, 2:3, :]
@@ -69,9 +71,12 @@ def _transmittance(alpha):
     return T, t_final
 
 
-def blend_fwd_plain(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t):
-    """Plain forward: out [T,P,F], t_final [T,P], n_touched [T,M] int32."""
-    alpha, _, _, _, ok, _ = _alpha(xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp)
+def blend_fwd_plain(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t,
+                    first_tile=0):
+    """Plain forward: out [T,P,F], t_final [T,P], n_touched [T,M] int32;
+    row t is tile first_tile + t."""
+    alpha, _, _, _, ok, _ = _alpha(xy, con, op, ts, tiles_x, alpha_cut, alpha_clamp,
+                                   first_tile)
     T, t_final = _transmittance(alpha)
     w = alpha * T
     out = torch.einsum("tpm,tfm->tpf", w, feat)

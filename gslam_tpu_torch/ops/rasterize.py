@@ -10,6 +10,14 @@ back per (tile, slot) and reach the [N] fields through the transpose of the
 gather, which autograd of the indexing gives. Tracking with fused=True
 renders through ops/track_fused.py instead.
 
+`render_impl(forward_mode=True)` blends with plain torch ops instead, chunk
+by chunk of tiles (`blend_tiles_forward`): the counterpart of the JAX
+package's jnp blend, which its Gauss-Newton tracker pins through
+`backend="xla"` because forward-mode AD cannot cross the blend kernel's
+custom VJP. The kernel pair's autograd function has no forward-mode rule
+either, so Gauss-Newton tracking, the only caller, takes this route on
+every device; every other render keeps the kernels.
+
 The compositing has no early termination: the reference declares a
 `transmittance_cut` it never reads, so the port has no such field and
 every splat of a tile's list is blended.
@@ -25,7 +33,7 @@ import torch
 
 from gslam_tpu_torch import resolve_device, to_device
 from gslam_tpu_torch.ops.binning import bin_gaussians
-from gslam_tpu_torch.ops.blend import blend_tiles_rows
+from gslam_tpu_torch.ops.blend import blend_fwd_plain, blend_tiles_rows
 from gslam_tpu_torch.ops.projection import ProjectionOutput, project_gaussians
 
 
@@ -35,6 +43,7 @@ class RenderConfig:
     tile_capacity: int = 256  # max splats blended per tile (nearest kept)
     pairs_per_gaussian: int = 8  # pair budget = N * this
     max_span: int = 16  # max tile-footprint side per splat
+    tile_chunk: int = 64  # tiles per chunk of blend_tiles_forward, its only reader
     near: float = 0.01
     far: float = 1e10
     eps2d: float = 0.3
@@ -131,6 +140,23 @@ def untile(x: torch.Tensor, tiles_x: int, tiles_y: int, ts: int, width: int,
     return img.reshape((C, tiles_y * ts, tiles_x * ts) + extra)[:, :height, :width]
 
 
+def blend_tiles_forward(xy, con, op, feat, ts: int, tiles_x: int, cfg: RenderConfig):
+    """The blend in plain torch ops, `cfg.tile_chunk` tiles at a time, for
+    forward-mode AD (torch.func.jvp under vmap): the counterpart of the jnp
+    branch of the JAX package's `_blend_tiles`. Takes the kernels' row layout
+    (xy [T, 2, M], con [T, 3, M], op [T, 1, M] with 0 at masked slots, feat
+    [T, F, M]; row t is tile t of a tiles_x-wide grid) and returns the
+    kernel's outputs, out [T, P, F], t_final [T, P] and n_touched [T, M]
+    (int32). That branch's sum of the weights is left out: its render drops
+    it for 1 - t_final. Chunking bounds the [chunk, P, M] temporaries, which
+    each tangent multiplies."""
+    args = (cfg.alpha_cut, cfg.alpha_clamp, cfg.visibility_min_T)
+    parts = [blend_fwd_plain(*(x[s:s + cfg.tile_chunk] for x in (xy, con, op, feat)),
+                             ts, tiles_x, *args, first_tile=s)
+             for s in range(0, xy.shape[0], cfg.tile_chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 class RenderRows(NamedTuple):
     """The blend's inputs for C cameras, each [C*T, c, M] with camera c's
     tiles at rows c*T..(c+1)*T, and what the render keeps beside them."""
@@ -198,9 +224,15 @@ def render_impl(
     cfg: RenderConfig = RenderConfig(),
     probe2d: torch.Tensor | None = None,  # [C, N, 2] zeros; see means2d grads
     bins: CameraBins | None = None,  # reuse precomputed tile lists
+    forward_mode: bool = False,  # plain-op blend for torch.func.jvp (see below)
 ) -> RenderOutput:
     """Render N splats into C cameras, differentiable in every splat field,
-    the viewmats and `probe2d` (whose gradient is dL/dmeans2d)."""
+    the viewmats and `probe2d` (whose gradient is dL/dmeans2d).
+
+    forward_mode=True blends through `blend_tiles_forward` instead of the
+    kernel pair, so that torch.func.jvp and vmap can transform the render:
+    the JAX package's `backend="xla"` pin, which only its Gauss-Newton
+    tracker sets (tracking/track.py passes it there and nowhere else)."""
     n, C = means.shape[0], viewmats.shape[0]
     dev = means.device
     ts = cfg.tile_size
@@ -213,9 +245,12 @@ def render_impl(
     # each camera is its own launch on its contiguous slice of rows. split's
     # backward concatenates the slices' gradients, with no zero-filled copy.
     cams = zip(*(x.split(T) for x in (r.xy, r.con, r.op, r.feat)))
-    parts = [blend_tiles_rows(*rows, ts, tiles_x,
-                              (cfg.alpha_cut, cfg.alpha_clamp, cfg.visibility_min_T))
-             for rows in cams]
+    if forward_mode:
+        parts = [blend_tiles_forward(*rows, ts, tiles_x, cfg) for rows in cams]
+    else:
+        parts = [blend_tiles_rows(*rows, ts, tiles_x,
+                                  (cfg.alpha_cut, cfg.alpha_clamp, cfg.visibility_min_T))
+                 for rows in cams]
     out, t_final, touched = (torch.cat(p) for p in zip(*parts))
 
     out = out.reshape(C, T, ts * ts, -1)

@@ -251,8 +251,11 @@ class SlamSystem:
             metrics["ate"] = ate_mean(gt_t, est_t)
             metrics["ate_rmse"] = ate_rmse(gt_t, est_t)
             if self.run_dir:
-                plot_trajectories(gt_t, est_t, self.run_dir / "traj.png",
-                                  sorted(be.frame_slot.keys()))
+                try:
+                    plot_trajectories(gt_t, est_t, self.run_dir / "traj.png",
+                                      sorted(be.frame_slot.keys()))
+                except ImportError as e:  # a host without matplotlib: no traj.png
+                    logger.warning("traj.png not written: %s", e)
         if self.run_dir and fe.frames:
             eye = np.eye(4, dtype=np.float32)
             np.save(self.run_dir / "trajectory.npy",

@@ -2,7 +2,7 @@
 """Where the time of a tracked frame and of a mapping step goes in the
 PyTorch port, on one CUDA card.
 
-    python3 profile_torch_track.py [--section tracking|mapping|all]
+    python3 profile_torch_track.py [--section tracking|mapping|gn|all]
                                    [--frames 3] [--trace out.json]
 
 tracking: chip_smoke.py's BASELINE config 1 scene (50,000 splats, 320x240,
@@ -22,6 +22,12 @@ mapping: chip_smoke.py's mapping point (131,072 slots, 100,000 live, a
      the blend kernels' share of the busy time, and host time in named
      ranges: the window loss (projection, binning, gather, blend, losses),
      the binning inside it, the backward, and the masked Adam.
+gn: the tracking scene's frame 1 tracked with method="gn" (flat x 10 LM
+iterations, then pyr3 x 8) after one warm-up frame; traces one frame of each
+and reports the same device figures per render pass and host time in named
+ranges: binning (once per level) and the linearization (normal_equations:
+the primal and tangent passes through the forward-mode route, JtJ, Jtr);
+the rest is the candidate renders, the solves and the readbacks.
 Prints one JSON line per part, and the card's name and power limit.
 """
 
@@ -149,9 +155,46 @@ def profile_mapping(smi, trace):
     print(json.dumps({"part": "mapping_trace", "nvidia_smi": smi, **summary}), flush=True)
 
 
+def profile_gn(smi, gmap, K, tcfg, poses, gts, trace):
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gslam_tpu_torch.tracking import track
+
+    for name, over in (("flat10", dict(gn_iters=10)),
+                       ("pyr3x8", dict(pyramid_levels=3, gn_iters=8))):
+        cfg = dataclasses.replace(tcfg, method="gn", **over)
+        track.track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, cs.W, cs.H, cfg)
+        patched = [(track, "compute_bins", "bins"),
+                   (track.GaussNewtonProblem, "normal_equations", "linearize")]
+        saved = [getattr(m, a) for m, a, _ in patched]
+        for m, a, rname in patched:
+            setattr(m, a, ranged(rname, getattr(m, a)))
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                r = track.track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, cs.W, cs.H,
+                                      cfg)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            for (m, a, _), fn in zip(patched, saved):
+                setattr(m, a, fn)
+        if trace:
+            prof.export_chrome_trace(trace.replace(".json", f"_gn_{name}.json"))
+        summary = trace_summary(prof, [rname for *_, rname in patched], wall_ms, r.n_evals,
+                                "pass")
+        summary["host_other_ms"] = wall_ms - sum(summary["host_ms"].values())
+        print(json.dumps({"part": f"gn_trace_{name}", "nvidia_smi": smi,
+                          "n_evals": r.n_evals, **summary}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--section", choices=("tracking", "mapping", "all"), default="all")
+    ap.add_argument("--section", choices=("tracking", "mapping", "gn", "all"),
+                    default="all")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write Chrome traces here")
     args = ap.parse_args()
@@ -197,6 +240,11 @@ def main() -> int:
             rgb = render_tracking_fused(gather_tracking_tiles(gmap, bins), p, K, W, H,
                                         tcfg.render)[0]
             gts.append(torch.clamp(rgb, 0.0, 1.0))
+
+    if args.section in ("gn", "all"):
+        profile_gn(smi, gmap, K, tcfg, poses, gts, args.trace)
+    if args.section == "gn":
+        return 0
 
     # 1. plain timing, prior = previous ground-truth pose
     frames = []

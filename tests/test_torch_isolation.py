@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 # the package and the port's entry scripts
 SOURCES = sorted((ROOT / "gslam_tpu_torch").rglob("*.py")) + [
-    ROOT / name for name in ("chip_smoke.py", "profile_torch_track.py", "bench_blend.py")]
+    ROOT / name for name in ("chip_smoke.py", "profile_torch_track.py", "bench_blend.py",
+                             "main_torch.py", "pipeline_torch.py", "view_torch.py")]
 FORBIDDEN = ("jax", "jaxlib", "gslam_tpu")
 
 
@@ -48,7 +49,13 @@ def test_sources_found():
             "gslam_tpu_torch/runtime/messages.py", "gslam_tpu_torch/runtime/frontend.py",
             "gslam_tpu_torch/runtime/backend.py", "gslam_tpu_torch/runtime/system.py",
             "gslam_tpu_torch/eval/metrics.py", "gslam_tpu_torch/viz/visualization.py",
-            "gslam_tpu_torch/io/stream.py"} <= names
+            "gslam_tpu_torch/io/stream.py", "main_torch.py", "pipeline_torch.py",
+            "view_torch.py", "gslam_tpu_torch/io/__init__.py", "gslam_tpu_torch/io/raytrace.py",
+            "gslam_tpu_torch/io/npz.py", "gslam_tpu_torch/io/native.py",
+            "gslam_tpu_torch/io/tum.py", "gslam_tpu_torch/io/tum_async.py",
+            "gslam_tpu_torch/io/replica.py", "gslam_tpu_torch/io/video.py",
+            "gslam_tpu_torch/io/oakd.py", "gslam_tpu_torch/eval/spline.py",
+            "gslam_tpu_torch/viz/viewer.py"} <= names
 
 
 def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
@@ -82,6 +89,25 @@ def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SlamSystem(SlamConfig(capacity=4, kf_capacity=2), 16, 16)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_refuses_cpu_without_a_device(monkeypatch, tmp_path):
+    """main_torch, pipeline_torch and view_torch without --device on a host
+    without CUDA raise before they build anything."""
+    import main_torch
+    import pipeline_torch
+    import view_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_torch.main(["--dataset", "synthetic", "--seq-len", "2", "--width", "16",
+                         "--height", "16", "--n-splats", "10", "--run-name", "x"])
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline_torch.main(["--synthetic", "--iters", "1", "--out", str(tmp_path / "p")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        view_torch.main([str(tmp_path / "missing.npz")])
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -267,8 +267,9 @@ def test_track_frame_guard_and_unported_configs(track_setup):
     r = tt.track_frame(*args, cfg, device=CPU)
     assert r.rejected and float(r.loss) == 1e3
     np.testing.assert_allclose(r.pose.numpy(), s["prior"], atol=1e-6)
-    # Gauss-Newton is not ported yet; fused=False is (test_track_frame_matches_jax)
-    with pytest.raises(NotImplementedError):
-        tt.track_frame(*args, dataclasses.replace(cfg, method="gn"), device=CPU)
+    # Gauss-Newton is ported (tests/test_torch_gn.py) and takes the same guard
+    r = tt.track_frame(*args, dataclasses.replace(cfg, method="gn", gn_iters=2), device=CPU)
+    assert r.rejected and float(r.loss) == 1e3
+    np.testing.assert_allclose(r.pose.numpy(), s["prior"], atol=1e-6)
     r = tt.track_frame(*args, dataclasses.replace(cfg, fused=False), device=CPU)
     assert r.rejected and float(r.loss) == 1e3
