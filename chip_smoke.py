@@ -87,7 +87,31 @@ Phases, one JSON line each:
      Checks: finite poses, not diverged, C >= 2, ATE < 0.06 m, and launch
      counters equal to what the tracking and refinement evaluations, the
      mapping iterations and the view, decision and eval renders predict.
- 11. cli: the fifth main path, main_torch.main in this process as the
+ 11. sharded_reference: the multi-device package (parallel/) on
+     tests/test_sharded_slam.py's 64x48 scene, two depth bands on the card
+     (one per card where the host has two, else both on cuda:0) against two
+     on ["cpu"] * 2: gauss_render (rgb, alpha 2e-5; depth, beta 1e-4), one
+     make_gauss_mapping_step and one dp_mapping_train_step (losses rtol
+     1e-5, first moments, parameters where |g| > 1e-4), the banded tracking
+     loss and gradient at x0 (rtol 1e-4); two bands against one on the card
+     (unsaturated lists, 2e-5 / 1e-4); then 4 ShardedSlam frames (pose
+     graph and densification on), each also stepped on the CPU from a copy
+     of the card's state before it: keyframe flag, C, live, health, loop
+     closures equal, the tracker as in slam_reference.
+ 12. sharded: the sixth main path. ShardedSlam.run over the slam phase's
+     frames with every config default but the render config, 131,072 slots
+     in two bands of 65,536, a 32-slot ring, eval_stride 4. Per frame:
+     CUDA-event ms and host syncs of repartition, track, kd_stats, insert,
+     map and densify/prune, evaluations and mapping iterations; launches,
+     peak memory, C, N, ATE, PSNR, loop closures. Checks: finite poses,
+     health 0, C >= 2, ATE < 0.06 m, launches equal to 2 x (evaluations +
+     window x mapping iterations + decision and eval renders) forwards and 2
+     x (evaluations + window x mapping iterations) backwards. Then one
+     dp_mapping_train_step (two camera chunks) and one hybrid 2x2 step at
+     the mapping point, each against the same step on one device (the
+     hybrid one against the same two bands unsplit on cuda:0): losses rtol
+     1e-5, parameters where |g| > 1e-4; their ms, and the one-band loss.
+ 13. cli: the fifth main path, main_torch.main in this process as the
      repo's runs use main.py: the raytraced room at 320x240, 8 frames,
      --use-gt-depths and GN pyr3 x 8, every other flag main.py's default; the
      actor runtime, then the same frames through an npz (save_dataset_npz,
@@ -130,6 +154,7 @@ W, H, FX, N_SPLATS, N_FRAMES = 320, 240, 280.0, 50_000, 10
 # bench.py's mapping operating point (section_mapping)
 MAP_CAP, MAP_LIVE, KF_CAP, WINDOW, N_KF = 131_072, 100_000, 32, 10, 12
 SLAM_FRAMES = 12  # the fused SLAM path's sequence (same capacity and store)
+SHARDED_FRAMES = SLAM_FRAMES  # the sharded path walks the same sequence
 
 
 class SmokeFailure(RuntimeError):
@@ -1593,6 +1618,482 @@ def phase_actor(smi):
     return launches
 
 
+SHARDED_BANDS = 2  # the sharded path's depth bands
+
+
+def sharded_devices(n):
+    """n devices for a mesh: one per card where the host has n cards, else
+    cuda:0 repeated (two bands then share the card)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if count >= n else ["cuda:0"] * n
+
+
+def sharded_scene(device, n=256, width=64, height=48, seed=7):
+    """tests/test_sharded_slam.py's scene (scene_utils.make_scene: n splats
+    at depths 2-4 before a 64x48 camera), depth-ordered at the identity, its
+    Adam state and K."""
+    import torch
+
+    from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy
+    from gslam_tpu_torch.mapping.optimizer import init_adam
+    from gslam_tpu_torch.parallel.sharding import partition_by_depth
+
+    rng = np.random.default_rng(seed)
+    fx = 0.9 * width
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1]], np.float32)
+    z = rng.uniform(2.0, 4.0, n)
+    u, v = rng.uniform(4, width - 4, n), rng.uniform(4, height - 4, n)
+    quats = rng.normal(size=(n, 4))
+    gmap = gaussian_map_from_numpy(dict(
+        means=np.stack([(u - width / 2) * z / fx, (v - height / 2) * z / fx, z], -1),
+        quats=quats / np.linalg.norm(quats, axis=-1, keepdims=True),
+        log_scales=np.log(rng.uniform(0.04, 0.12, (n, 3))),
+        logit_opacities=rng.uniform(-1.0, 3.0, n), logit_colors=rng.normal(size=(n, 3)),
+        log_uncertainties=rng.uniform(-0.5, 0.5, n), alive=np.ones(n, bool)), device=device)
+    gmap, opt = partition_by_depth(gmap, torch.eye(4, device=device), init_adam(gmap))
+    return gmap, opt, torch.tensor(K, device=device)
+
+
+class LossRecorder:
+    """Records each loss the parallel steps compute (sharding._mapping_loss)
+    while in a `with` block."""
+
+    def __enter__(self):
+        from gslam_tpu_torch.parallel import sharding
+
+        self.losses, self._mod = [], sharding
+        self._orig = sharding._mapping_loss
+
+        def loss(*a, **kw):
+            out = self._orig(*a, **kw)
+            self.losses.append(float(out.detach()))
+            return out
+
+        sharding._mapping_loss = loss
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._mapping_loss = self._orig
+
+
+def step_agreement(a, b):
+    """Two results (map or bands, Adam state or bands, pose_vec) of one
+    mapping step from the same inputs: the largest first-moment gap per
+    field relative to the field's largest |mu| (mu = 0.1 g after one step),
+    the largest parameter gap where |g| > 1e-4 in both, and the pose_vec
+    gap."""
+    import torch
+
+    from gslam_tpu_torch.parallel.sharding import join_bands
+
+    def joined(x):
+        return join_bands(x, "cpu") if isinstance(x, list) else join_bands([x], "cpu")
+
+    (ma, oa, pa), (mb, ob, pb) = ((joined(m), joined(o), p.cpu()) for m, o, p in (a, b))
+    mu_rel, param = 0.0, 0.0
+    for f in oa.mu:
+        ga, gb = oa.mu[f], ob.mu[f]
+        mu_rel = max(mu_rel, float((ga - gb).abs().max() / gb.abs().max().clamp(min=1e-30)))
+        big = (ga.abs() > 1e-5) & (gb.abs() > 1e-5)
+        if bool(big.any()):
+            param = max(param, float((getattr(ma, f) - getattr(mb, f))[big].abs().max()))
+    return dict(mu_rel=mu_rel, param_max_abs=param,
+                pose_vec_max_abs=float((pa - pb).abs().max()))
+
+
+def sharded_small_cfg():
+    """tests/test_torch_sharded_slam.py's configuration with the pose graph
+    and densification (its mesh-size invariance run), at 64x48."""
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.parallel.slam import ShardedSlamConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    r = RenderConfig(tile_capacity=64, pairs_per_gaussian=8)
+    return ShardedSlamConfig(
+        tracking=TrackingConfig(warmup_steps=4, lbfgs_max_iter=20, lbfgs_max_eval=25, render=r),
+        mapping=MapConfig(window_size=3, recent_window=2, num_iters_init=20,
+                          num_iters_mapping=4, enable_pgo=True, densify_every=8,
+                          densify_max_new=32, render=r),
+        init_n_new=600, kf_n_new=100, idle_iters=1)
+
+
+def phase_sharded_reference():
+    """The multi-device package on a small scene, card against CPU, two
+    bands on the card's devices against two on ["cpu"] * 2: gauss_render,
+    one make_gauss_mapping_step, one dp_mapping_train_step, the banded
+    tracking loss and gradient at x0; two bands against one on the card;
+    then 4 ShardedSlam frames, each stepped again on the CPU from a copy of
+    the card's state before it (the same draws)."""
+    import torch
+
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops.rasterize import RenderConfig, compute_bins
+    from gslam_tpu_torch.parallel import sharding as ts
+    from gslam_tpu_torch.parallel.slam import ShardedSlam, ShardedSlamConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    w, h, D = 64, 48, SHARDED_BANDS
+    card_devs = sharded_devices(D)
+    cfg = MapConfig(render=RenderConfig(tile_capacity=160, pairs_per_gaussian=8))
+    res, parts = {}, {}
+    for name, devs in (("cuda", card_devs), ("cpu", ["cpu"] * D), ("cuda_1", ["cuda:0"])):
+        gmap, opt, K = sharded_scene(devs[0])
+        vms = torch.eye(4, device=devs[0]).repeat(2, 1, 1)
+        vms[1, 0, 3] = 0.05
+        Ks = K[None].expand(2, 3, 3)
+        mesh = ts.make_mesh(len(devs), axis="gauss", devices=devs)
+        bands = ts.split_bands(gmap, mesh.axis_devices("gauss"))
+        out = {"render": [x.cpu() for x in ts.gauss_render(mesh, bands, vms, Ks, w, h, cfg)]}
+        if name == "cuda_1":
+            bins = compute_bins(gmap.means, gmap.quats, gmap.log_scales, gmap.alive, vms,
+                                Ks, w, h, cfg.render)
+            out["max_list"] = int(bins.tile_mask.sum(-1).max())
+            res[name] = out
+            continue
+        rng = np.random.default_rng(11)
+        gt = torch.tensor(rng.random((2, h, w, 3)), dtype=torch.float32, device=devs[0])
+        exps = torch.tensor(rng.normal(scale=0.05, size=(2, 2)), dtype=torch.float32,
+                            device=devs[0])
+        pv = torch.zeros((2, 9), device=devs[0])
+        with LossRecorder() as rec:
+            out["gauss_step"] = ts.make_gauss_mapping_step(mesh, w, h, cfg)(
+                bands, ts.split_bands(opt, mesh.axis_devices("gauss")), pv, vms, gt, exps, Ks)
+            out["dp_step"] = ts.dp_mapping_train_step(
+                gmap, opt, pv, vms, gt, exps, Ks, w, h, cfg,
+                mesh=ts.make_mesh(D, devices=devs))
+        out["losses"] = rec.losses
+        # the banded tracking loss and its gradient at x0
+        tcfg = ShardedSlamConfig(tracking=TrackingConfig(warmup_steps=0, lbfgs_max_eval=1,
+                                                         render=cfg.render))
+        slam = ShardedSlam(tcfg, mesh, w, h, capacity=gmap.capacity, kf_capacity=4)
+        slam._set_joined(gmap, opt)
+        with EvalRecorder("gslam_tpu_torch.parallel.slam") as evals:
+            slam._track(vms[1], torch.zeros(2, device=devs[0]), gt[0], K,
+                        torch.zeros((h, w), device=devs[0]))
+        out["track"] = evals.evals[0]
+        res[name] = out
+
+    def gap(a, b):
+        return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+    parts["render_card_vs_cpu"] = gap(res["cuda"]["render"], res["cpu"]["render"])
+    parts["render_2_vs_1_band"] = gap(res["cuda"]["render"], res["cuda_1"]["render"])
+    parts["max_list_1_band"] = res["cuda_1"]["max_list"]
+    parts["losses"] = {k: res[k]["losses"] for k in ("cuda", "cpu")}
+    parts["gauss_step"] = step_agreement(res["cuda"]["gauss_step"], res["cpu"]["gauss_step"])
+    parts["dp_step"] = step_agreement(res["cuda"]["dp_step"], res["cpu"]["dp_step"])
+    ta, tb = res["cuda"]["track"], res["cpu"]["track"]
+    parts["track_f_rel"] = abs(ta["f"] - tb["f"]) / abs(tb["f"])
+    parts["track_g_rel"] = float(np.linalg.norm(ta["g"] - tb["g"]) / np.linalg.norm(tb["g"]))
+
+    # 4 frames of the loop, card and CPU from the card's state
+    scfg = sharded_small_cfg()
+    ds = SyntheticDataset(seq_len=4, width=w, height=h, n_splats=400, seed=3,
+                          motion_scale=0.01, device="cpu")
+    card = ShardedSlam(scfg, ts.make_mesh(D, axis="gauss", devices=card_devs), w, h,
+                       capacity=1024, kf_capacity=8)
+    frames = []
+    for i in range(len(ds)):
+        cpu = ShardedSlam(scfg, ts.make_mesh(D, axis="gauss", devices=["cpu"] * D), w, h,
+                          capacity=1024, kf_capacity=8)
+        cpu.load_state(card.state_to_numpy())
+        with EvalRecorder("gslam_tpu_torch.parallel.slam") as cpu_evals:
+            cpu.step(i, ds.images[i], None, ds.camera.K)
+        with EvalRecorder("gslam_tpu_torch.parallel.slam") as card_evals:
+            card.step(i, ds.images[i], None, ds.camera.K)
+        dt, drot = pose_gap(card.trajectory[-1][None], cpu.trajectory[-1][None])
+        frames.append(dict(
+            frame=i, pose_gap_m=dt, rot_gap_rad=drot,
+            keyframe=[card.kf_frames[-1] == i, cpu.kf_frames[-1] == i],
+            **{k: [int(getattr(s, k)) for s in (card, cpu)]
+               for k in ("kf_count", "health", "loop_closures", "total_map_iters")},
+            live=[sum(int(b.n_live()) for b in s.bands) for s in (card, cpu)],
+            tracker=tracker_agreement(card_evals.evals, cpu_evals.evals,
+                                      scfg.tracking.warmup_steps)))
+    emit("sharded_reference", devices=card_devs, frames=frames, **parts,
+         tolerance="card vs CPU (2 bands each): render rgb/alpha 2e-5, depth/beta 1e-4; "
+                   "step losses rtol 1e-5, first moments within 1e-4 of each field's "
+                   "largest, parameters 1e-5 where |g| > 1e-4, pose_vec 1e-6; tracking "
+                   "loss and gradient at x0 rtol 1e-4; 2 bands vs 1 on the card: 2e-5 / "
+                   "1e-4 (unsaturated lists); frames: keyframe flag, C, live, health, "
+                   "loop closures equal, tracker as slam_reference")
+    for k, g in (("render_card_vs_cpu", parts["render_card_vs_cpu"]),
+                 ("render_2_vs_1_band", parts["render_2_vs_1_band"])):
+        check(max(g[:2]) <= 2e-5 and max(g[2:]) <= 1e-4, f"sharded_reference: {k} {g}")
+    check(parts["max_list_1_band"] < cfg.render.tile_capacity,
+          f"sharded_reference: one band's lists saturate ({parts['max_list_1_band']})")
+    la, lb = parts["losses"]["cuda"], parts["losses"]["cpu"]
+    check(len(la) == len(lb) == 2 and all(abs(a / b - 1) <= 1e-5 for a, b in zip(la, lb)),
+          f"sharded_reference: step losses {la} vs {lb}")
+    for k in ("gauss_step", "dp_step"):
+        s = parts[k]
+        check(s["mu_rel"] <= 1e-4 and s["param_max_abs"] <= 1e-5
+              and s["pose_vec_max_abs"] <= 1e-6, f"sharded_reference: {k} {s}")
+    check(parts["track_f_rel"] <= 1e-4 and parts["track_g_rel"] <= 1e-4,
+          f"sharded_reference: tracking at x0 f {parts['track_f_rel']} g {parts['track_g_rel']}")
+    for f in frames:
+        where = f"sharded_reference: frame {f['frame']}"
+        bad = [k for k in ("keyframe", "kf_count", "health", "loop_closures",
+                           "total_map_iters", "live") if f[k][0] != f[k][1]]
+        check(not bad, f"{where}: {bad} differ: {f}")
+        t = f["tracker"]
+        if t["n_evals"][1]:
+            check(t["first_f_rel"] <= 1e-5 and t["first_g_rel"] <= 1e-4,
+                  f"{where}: first tracking evaluation differs: {t}")
+        if t["parted_at"] is None:
+            check(f["pose_gap_m"] <= 2e-3 and f["rot_gap_rad"] <= 2e-3,
+                  f"{where}: poses differ by {f['pose_gap_m']} m, {f['rot_gap_rad']} rad")
+        else:
+            check(t["parted_at"] >= t["min_part"],
+                  f"{where}: tracking evaluations part before the line search: {t}")
+
+
+class ShardedClock:
+    """CUDA events and host-sync counts around ShardedSlam's parts, per
+    frame, for the duration of a `with` block: wraps the instance's step (the
+    frame), _repartition_all, _track, _kd_stats, _insert, _run_mapping,
+    _densify and _prune. Host syncs are the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+
+    PARTS = (("_repartition_all", "repartition"), ("_track", "track"),
+             ("_kd_stats", "kd_stats"), ("_insert", "insert"), ("_run_mapping", "map"),
+             ("_densify", "densify_prune"), ("_prune", "densify_prune"))
+
+    def __init__(self, slam):
+        import warnings
+
+        self.slam, self.frames, self._warnings, self._current = slam, [], warnings, None
+
+    def _mark(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev, len(self._seen)
+
+    def _wrap(self, method, part):
+        orig = getattr(self.slam, method)
+
+        def run(*a, **kw):
+            start = self._mark()
+            out = orig(*a, **kw)
+            if self._current is not None:
+                self._current["parts"].append((part, start, self._mark()))
+                if method == "_track":
+                    self._current["evals"] = out[3]
+            return out
+
+        setattr(self.slam, method, run)
+
+    def __enter__(self):
+        import torch
+
+        for method, part in self.PARTS:
+            self._wrap(method, part)
+        orig = self.slam.step
+
+        def step(*a, **kw):
+            iters = self.slam.total_map_iters
+            self._current = {"start": self._mark(), "parts": [], "evals": 0}
+            orig(*a, **kw)
+            self._current["end"] = self._mark()
+            self._current["map_iters"] = self.slam.total_map_iters - iters
+            self.frames.append(self._current)
+            self._current = None
+
+        self.slam.step = step
+        self._catch = self._warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        self._warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        for method, _ in self.PARTS + (("step", None),):
+            vars(self.slam).pop(method, None)
+
+    def split(self):
+        """Per frame: ms and host syncs of each part and of the whole frame,
+        tracking evaluations and mapping iterations."""
+        import torch
+
+        torch.cuda.synchronize()
+        names = sorted({p for _, p in self.PARTS})
+        out = []
+        for f in self.frames:
+            row = {"frame_ms": f["start"][0].elapsed_time(f["end"][0]),
+                   "frame_syncs": f["end"][1] - f["start"][1],
+                   "evals": f["evals"], "map_iters": f["map_iters"]}
+            for n in names:
+                row[f"{n}_ms"] = sum(a[0].elapsed_time(b[0]) for p, a, b in f["parts"]
+                                     if p == n)
+                row[f"{n}_syncs"] = sum(b[1] - a[1] for p, a, b in f["parts"] if p == n)
+            out.append(row)
+        return out
+
+
+def timed_step(fn):
+    """fn() between CUDA events: (its result, ms)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def mapping_point_parallel(point):
+    """One dp_mapping_train_step over two camera chunks and one hybrid 2x2
+    step at the mapping point, each against the same step on one device
+    from the same inputs: dp on a one-device mesh, the hybrid step against
+    the splat-sharded step over the same two bands on cuda:0 (at 100,000
+    live splats one band's 512-slot tile lists saturate, so one band renders
+    fewer splats than two: its loss, `gauss_1`, is printed, not compared).
+    Each step runs twice, the second timed. Returns the comparison, the ms
+    and the launches."""
+    import torch
+
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.parallel import sharding as ts
+
+    gmap, opt, kf, _pose_opt, widx, _wmask, K, cfg = point
+    C = widx.shape[0]
+    with torch.no_grad():
+        pose_base = kf.poses()[widx]
+    cams = (torch.zeros((C, 9), device="cuda"), pose_base, kf.images[widx],
+            kf.exposures[widx], K[None].expand(C, 3, 3))
+    gp, op = ts.partition_by_depth(gmap, pose_base[0], opt)
+    n_cards = torch.cuda.device_count()
+    hyb_devs = [f"cuda:{g % n_cards}" for g in range(2) for _ in range(2)]
+    runs = {
+        "dp_2": lambda: ts.dp_mapping_train_step(
+            gmap, opt, *cams, W, H, cfg, mesh=ts.make_mesh(2, devices=sharded_devices(2))),
+        "dp_1": lambda: ts.dp_mapping_train_step(
+            gmap, opt, *cams, W, H, cfg, mesh=ts.make_mesh(1, devices=["cuda:0"])),
+        "hybrid_2x2": lambda: ts.make_hybrid_mapping_step(
+            ts.make_hybrid_mesh(2, 2, devices=hyb_devs), W, H, cfg)(
+            ts.split_bands(gp, hyb_devs[::2]), ts.split_bands(op, hyb_devs[::2]), *cams),
+        "gauss_2": lambda: ts.make_gauss_mapping_step(
+            ts.make_mesh(2, axis="gauss", devices=["cuda:0"] * 2), W, H, cfg)(
+            ts.split_bands(gp, ["cuda:0"] * 2), ts.split_bands(op, ["cuda:0"] * 2), *cams),
+        "gauss_1": lambda: ts.make_gauss_mapping_step(
+            ts.make_mesh(1, axis="gauss", devices=["cuda:0"]), W, H, cfg)(
+            [gp], [op], *cams),
+    }
+    out, ms, losses, launches = {}, {}, {}, {}
+    for name, fn in runs.items():
+        blend.reset_launches()
+        with LossRecorder() as rec:
+            out[name] = fn()
+            _, ms[name] = timed_step(fn)
+        launches[name] = dict(blend.launches)
+        losses[name] = rec.losses
+    res = dict(ms=ms, losses=losses, launches=launches,
+               dp=step_agreement(out["dp_2"], out["dp_1"]),
+               hybrid=step_agreement(out["hybrid_2x2"], out["gauss_2"]),
+               devices={"dp": sharded_devices(2), "hybrid": hyb_devs})
+    for a, b in (("dp_2", "dp_1"), ("hybrid_2x2", "gauss_2")):
+        la, lb = losses[a], losses[b]
+        check(len(la) == len(lb) == 2 and all(abs(x / y - 1) <= 1e-5 for x, y in zip(la, lb)),
+              f"sharded: {a} losses {la} vs {b} {lb}")
+    for k in ("dp", "hybrid"):
+        check(res[k]["mu_rel"] <= 1e-4 and res[k]["param_max_abs"] <= 1e-5
+              and res[k]["pose_vec_max_abs"] <= 1e-6, f"sharded: {k} step {res[k]}")
+    for name, n in launches.items():
+        # two calls, each one launch of each kernel per camera and band
+        per_call = C * (2 if name in ("hybrid_2x2", "gauss_2") else 1)
+        check(n == {"blend_fwd": 2 * per_call, "blend_bwd": 2 * per_call},
+              f"sharded: {name} launched {n}")
+    return res
+
+
+def phase_sharded(smi):
+    """The sixth main path: ShardedSlam.run over the slam phase's frames at
+    320x240 with every config default but the render config, 131,072 slots
+    in two depth bands of 65,536 (one per card, or both on cuda:0), a
+    32-slot ring, eval_stride 4; the launch counters are set to 0 just
+    before the run and read just after. Then the camera-DP and hybrid steps
+    at the mapping point against one device."""
+    import torch
+
+    from gslam_tpu_torch.io.synthetic import SyntheticDataset
+    from gslam_tpu_torch.mapping.backend_ops import MapConfig
+    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.ops.rasterize import RenderConfig
+    from gslam_tpu_torch.parallel.sharding import make_mesh
+    from gslam_tpu_torch.parallel.slam import ShardedSlam, ShardedSlamConfig
+    from gslam_tpu_torch.tracking.track import TrackingConfig
+
+    D, eval_stride = SHARDED_BANDS, 4
+    devs = sharded_devices(D)
+    print(f"sharded: {D} bands on {devs}", flush=True)
+    ds = SyntheticDataset(seq_len=SHARDED_FRAMES, width=W, height=H, n_splats=10_000,
+                          seed=3, motion_scale=0.015, device="cuda")
+    r = RenderConfig(tile_capacity=512, pairs_per_gaussian=8)
+    cfg = ShardedSlamConfig(tracking=TrackingConfig(render=r), mapping=MapConfig(render=r))
+    slam = ShardedSlam(cfg, make_mesh(D, axis="gauss", devices=devs), W, H,
+                       capacity=MAP_CAP, kf_capacity=KF_CAP, seed=0)
+    cards = range(torch.cuda.device_count())
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    blend.reset_launches()
+    t0 = time.perf_counter()
+    with ShardedClock(slam) as clock:
+        m = slam.run(ds, eval_stride=eval_stride)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(blend.launches)
+    peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
+    frames = clock.split()
+    n_evals = sum(f["evals"] for f in frames)
+    n_eval_views = len(range(0, m["L"], eval_stride))
+    # per band: one forward and one backward per tracking evaluation and
+    # per window camera (padded ones included) of each mapping iteration;
+    # one forward per keyframe decision (a frame after the first) and per
+    # eval view (no visibility renders: the pose graph is off)
+    window = cfg.mapping.window_size
+    grads = n_evals + window * m["total_map_iters"]
+    want = {"blend_fwd": D * (grads + (m["L"] - 1) + n_eval_views),
+            "blend_bwd": D * grads}
+
+    def med(key):
+        return float(np.median([f[key] for f in frames[1:]]))
+
+    emit("sharded", nvidia_smi=smi, devices=devs, bands=D, frames=frames,
+         bootstrap_frame=frames[0], median_frame={k: med(k) for k in frames[0]},
+         wall_s=wall_s, launches=launches, launches_predicted=want, sum_n_evals=n_evals,
+         max_memory_allocated_bytes=peaks[0], max_memory_allocated_bytes_by_card=peaks,
+         metrics=m, gt_splats=10_000,
+         capacity=MAP_CAP)
+    check(np.isfinite(np.stack(slam.trajectory)).all() and m["nonfinite_poses"] == 0,
+          "sharded: a pose is not finite")
+    check(m["health"] == 0, f"sharded: health {m['health']}")
+    check(m["C"] >= 2 and 0 in m["kf_frames"], f"sharded: keyframes {m['kf_frames']}")
+    check(m["ate"] < 0.06, f"sharded: ATE {m['ate']} m >= 0.06")
+    check(launches == want, f"sharded: launches {launches} != predicted {want}")
+    del slam
+    torch.cuda.empty_cache()
+    point = mapping_point()
+    steps = mapping_point_parallel(point)
+    del point
+    emit("sharded_mapping_point", nvidia_smi=smi, **steps,
+         tolerance="loss rtol 1e-5; first moments within 1e-4 of each field's largest; "
+                   "parameters 1e-5 where |g| > 1e-4; pose_vec 1e-6")
+    return launches
+
+
 CLI_FRAMES = 8
 
 
@@ -1764,16 +2265,18 @@ def main() -> int:
     slam_launches = phase_slam(smi)
     phase_actor_reference()
     actor_launches = phase_actor(smi)
+    phase_sharded_reference()
+    sharded_launches = phase_sharded(smi)
     cli_launches, shapes["cli_full_res"] = phase_cli(smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
-    # launches: the five main paths; launches_by_path: each path's own
+    # launches: the six main paths; launches_by_path: each path's own
     # count, read just after that path ran with the counters set to 0 before
     # it. The headline numbers are the tracking rows (T=300, M=512); by_shape
     # holds every shape the paths give the kernels
     by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches,
-               "actor": actor_launches, "cli": cli_launches}
+               "actor": actor_launches, "sharded": sharded_launches, "cli": cli_launches}
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
                     replaces=replaces[name], launches=sum(p[name] for p in by_path.values()),
                     launches_by_path={k: p[name] for k, p in by_path.items()},

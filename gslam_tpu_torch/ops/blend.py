@@ -249,10 +249,12 @@ def blend_fwd_cuda(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t
     args = (xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
             out.data_ptr(), tf.data_ptr(), touched.data_ptr(),
             T, M, ts, tiles_x, alpha_cut, alpha_clamp, min_t)
-    if segments is None:
-        err = _kernel("blend_fwd")(*args, stream)
-    else:
-        err = _kernel("blend_fwd_split")(*args, segments, stream)
+    # the C interface launches on the current card: make it the tensors'
+    with torch.cuda.device(xy.device):
+        if segments is None:
+            err = _kernel("blend_fwd")(*args, stream)
+        else:
+            err = _kernel("blend_fwd_split")(*args, segments, stream)
     _raise_on(err, "blend_fwd")
     launches["blend_fwd"] += 1
     return out, tf, touched
@@ -273,10 +275,11 @@ def blend_bwd_cuda(xy, con, op, feat, g_out, g_tf, ts, tiles_x, alpha_cut,
         return dxy, dcon, dop, dfeat
     fn = _kernel("blend_bwd")
     stream = torch.cuda.current_stream(xy.device).cuda_stream
-    err = fn(xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
-             g_out.data_ptr(), g_tf.data_ptr(), dxy.data_ptr(), dcon.data_ptr(),
-             dop.data_ptr(), dfeat.data_ptr(), T, M, ts, tiles_x, alpha_cut,
-             alpha_clamp, stream)
+    with torch.cuda.device(xy.device):
+        err = fn(xy.data_ptr(), con.data_ptr(), op.data_ptr(), feat.data_ptr(),
+                 g_out.data_ptr(), g_tf.data_ptr(), dxy.data_ptr(), dcon.data_ptr(),
+                 dop.data_ptr(), dfeat.data_ptr(), T, M, ts, tiles_x, alpha_cut,
+                 alpha_clamp, stream)
     _raise_on(err, "blend_bwd")
     launches["blend_bwd"] += 1
     return dxy, dcon, dop, dfeat

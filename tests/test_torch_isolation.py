@@ -55,7 +55,8 @@ def test_sources_found():
             "gslam_tpu_torch/io/tum.py", "gslam_tpu_torch/io/tum_async.py",
             "gslam_tpu_torch/io/replica.py", "gslam_tpu_torch/io/video.py",
             "gslam_tpu_torch/io/oakd.py", "gslam_tpu_torch/eval/spline.py",
-            "gslam_tpu_torch/viz/viewer.py"} <= names
+            "gslam_tpu_torch/viz/viewer.py", "gslam_tpu_torch/parallel/__init__.py",
+            "gslam_tpu_torch/parallel/sharding.py", "gslam_tpu_torch/parallel/slam.py"} <= names
 
 
 def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
