@@ -16,7 +16,8 @@ Phases, one JSON line each:
      memory and resident blocks per SM; for blend_fwd the depth segments
      per tile that the card's rule gives. Also on one camera's rows of the
      mapping point's 100k-live map (T=300, M=512), the lists that mapping
-     feeds the kernels.
+     feeds the kernels, and on the first window camera's rows of the
+     onemillion point's 1M map (640x480: T=1200, M=256).
   3. reference: track_frame on a small scene on the card and on the CPU
      (plain blend); the two poses must agree.
   4. tracking: the first main path. BASELINE config 1 (N=50,000 splats,
@@ -122,6 +123,21 @@ Phases, one JSON line each:
      (as in phase 2) on the actor run's keyframe rows at this path's own
      shape, main.py's default tile_capacity (T=300, M=256, where blend_fwd
      takes its own depth segments).
+ 14. onemillion: the seventh main path, BASELINE config 3's scale point
+     (scripts/bench_1m_torch.py in this process: 2^20 slots, 1,000,000
+     live, 640x480, fx 560, tile_capacity 256, 4 pairs per splat, a window
+     of 10 of 12 keyframes): the script's line (render, compact and step
+     ms, passes/s, peak memory) plus blend launches per render (1 + 0) and
+     per mapping step (10 + 10), both checked, finite losses and parameters,
+     the photometric loss of the first and last 3 steps, the largest pair
+     count against the 4,194,304-pair budget and the tiles over capacity in
+     each window camera (phase 2 holds the kernels at its shape).
+ 15. scripts: the port's tools on the card, in this process:
+     study_tracking_torch oracle at its defaults over 14 frames (160x120,
+     4,000 splats, motion_scale 0.045, 200 evaluations: every per-frame error
+     finite, median < 1 cm, largest < 5 cm), demo_track_torch (the pose
+     recovered, its PNGs in a temporary directory) and repro_f16_torch (its
+     four lines, every objective finite).
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -132,6 +148,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -415,6 +432,24 @@ def mapping_rows(point):
     return [r.xy, r.con, r.op, r.feat], ts, -(-W // ts), cfg.render
 
 
+def onemillion_rows():
+    """The blend's rows of the 1M map's first window camera
+    (scripts/bench_1m_torch.py's point, 640x480: T=1200, M=256), as the
+    generic render gathers them."""
+    import torch
+
+    from gslam_tpu_torch.ops.rasterize import render_rows
+
+    bench = tools()[0]
+    gmap, _opt, kf, _pose_opt, widx, _wmask, K, cfg = bench.build_point(
+        *bench.point_arrays(), device="cuda")
+    ts = cfg.render.tile_size
+    with torch.no_grad():
+        r = render_rows(**gmap.render_kwargs(), viewmats=kf.poses()[widx[:1]], Ks=K[None],
+                        width=bench.W, height=bench.H, cfg=cfg.render)
+    return [r.xy, r.con, r.op, r.feat], ts, -(-bench.W // ts), cfg.render
+
+
 TOLERANCE = ("float outputs: max(|kernel - fp64| - 1e-4 |fp64|) <= 2 max|plain32 - fp64| "
              "+ 1e-6 max|fp64|; n_touched within 1 on <= 0.1% of slots")
 
@@ -429,9 +464,13 @@ def phase_kernels(gmap, K, tcfg, point, smi):
     mapping = compare_and_time(*mapping_rows(point), gen)
     check(mapping["T"] == 300 and mapping["M"] == 512,
           f"unexpected mapping shape {mapping['T']}x{mapping['M']}")
+    onemillion = compare_and_time(*onemillion_rows(), gen)
+    check(onemillion["T"] == 1200 and onemillion["M"] == 256,
+          f"unexpected onemillion shape {onemillion['T']}x{onemillion['M']}")
     emit("kernels_vs_plain", nvidia_smi=smi, full_res=full, pyramid_l1=half,
-         mapping_full_res=mapping, tolerance=TOLERANCE)
-    return {"tracking_full_res": full, "pyramid_l1": half, "mapping_full_res": mapping}
+         mapping_full_res=mapping, onemillion=onemillion, tolerance=TOLERANCE)
+    return {"tracking_full_res": full, "pyramid_l1": half, "mapping_full_res": mapping,
+            "onemillion": onemillion}
 
 
 def phase_reference():
@@ -2220,6 +2259,143 @@ def phase_cli(smi):
     return launches, shape
 
 
+def tools():
+    """The port's tools under scripts/, imported as modules."""
+    if str(ROOT / "scripts") not in sys.path:
+        sys.path.insert(0, str(ROOT / "scripts"))
+    import bench_1m_torch
+    import demo_track_torch
+    import repro_f16_torch
+    import study_tracking_torch
+
+    return bench_1m_torch, study_tracking_torch, demo_track_torch, repro_f16_torch
+
+
+def tiles_over_capacity(gmap, poses, K, width, height, cfg):
+    """Per camera, the tiles whose list holds more splats than
+    tile_capacity keeps (binning's tile_counts before truncation)."""
+    import torch
+
+    from gslam_tpu_torch.ops.binning import bin_gaussians
+    from gslam_tpu_torch.ops.rasterize import project_cameras
+
+    ts = cfg.tile_size
+    with torch.no_grad():
+        proj = project_cameras(gmap.means, gmap.quats, torch.exp(gmap.log_scales), gmap.alive,
+                               poses, K[None].expand(poses.shape[0], 3, 3), width, height,
+                               cfg)
+        return [int((bin_gaussians(proj.means2d[c], proj.radii[c], proj.depths[c],
+                                   proj.valid[c], ts, -(-width // ts), -(-height // ts),
+                                   int(cfg.pairs_per_gaussian * gmap.capacity),
+                                   cfg.tile_capacity, cfg.max_span).tile_counts
+                     > cfg.tile_capacity).sum())
+                for c in range(poses.shape[0])]
+
+
+def phase_onemillion(smi):
+    """The seventh main path, BASELINE config 3's scale point, through
+    scripts/bench_1m_torch.py (point_arrays, build_point, measure) with the
+    launch counters set to 0 just before it. Returns its launches."""
+    import torch
+
+    from gslam_tpu_torch.ops import blend
+
+    bench, *_ = tools()
+    w, h = bench.W, bench.H
+    t0 = time.perf_counter()
+    point = bench.build_point(*bench.point_arrays(), device="cuda")
+    build_s = time.perf_counter() - t0
+    blend.reset_launches()
+    detail, steps, state = bench.measure(point)
+    launches = dict(blend.launches)
+    line = bench.result_line(detail, steps, w, h)
+    print(json.dumps(line), flush=True)
+
+    gmap, _opt, kf, _pose_opt = state
+    *_, widx, _wmask, K, cfg = point
+    window = int(widx.shape[0])
+    n_steps = len(steps)
+    timed = [st for st in steps if not st["warmup"]]
+    budget = int(cfg.render.pairs_per_gaussian * bench.CAP)
+    reps = 1 + bench.RENDER_REPS  # the warm-up render and the timed ones
+    expected = {"blend_fwd": reps + window * n_steps, "blend_bwd": window * n_steps}
+    finite = (all(np.isfinite([st["total_loss"] for st in steps]))
+              and all(bool(torch.isfinite(x).all()) for x in gmap.trainable().values())
+              and bool(torch.isfinite(kf.d_t).all()) and bool(torch.isfinite(kf.d_rot6).all()))
+    over = tiles_over_capacity(gmap, kf.poses()[widx], K, w, h, cfg.render)
+    result = dict(
+        nvidia_smi=smi, build_s=build_s, n_steps=n_steps, n_warmup=n_steps - len(timed),
+        launches=launches, expected_launches=expected,
+        blend_launches_per_render=detail["blend_launches_per_render"],
+        blend_launches_per_step=detail["blend_launches_per_step"],
+        photometric_loss_first3=float(np.mean([st["photometric_loss"] for st in timed[:3]])),
+        photometric_loss_last3=float(np.mean([st["photometric_loss"] for st in timed[-3:]])),
+        total_loss=[st["total_loss"] for st in steps],
+        max_n_pairs=max(st["max_n_pairs"] for st in steps), pair_budget=budget,
+        tiles_over_capacity=over,
+        tiles_per_camera=-(-w // cfg.render.tile_size) * -(-h // cfg.render.tile_size),
+        max_memory_allocated_bytes=detail["max_memory_allocated_bytes"], finite=finite)
+    emit("onemillion", **result)
+    check(detail["blend_launches_per_render"] == {"blend_fwd": 1, "blend_bwd": 0},
+          f"a render launched {detail['blend_launches_per_render']}, expected 1 + 0")
+    check(detail["blend_launches_per_step"] == {"blend_fwd": window, "blend_bwd": window},
+          f"a step launched {detail['blend_launches_per_step']}, expected {window} + {window}")
+    check(launches == expected, f"onemillion launched {launches}, expected {expected}")
+    check(finite and detail["render_finite"], "onemillion produced non-finite values")
+    check(result["photometric_loss_last3"] < result["photometric_loss_first3"],
+          "the photometric loss did not fall over the pass")
+    check(result["max_n_pairs"] > 0, "onemillion binned no pair")
+    return launches
+
+
+STUDY_FRAMES = 14  # docs/TRACKING_STUDY.md's oracle run
+
+
+def phase_scripts(smi):
+    """The port's tools on the card in this process, with the launch
+    counters set to 0 just before them: study_tracking_torch's oracle at its
+    defaults (docs/TRACKING_STUDY.md:16-24's run: 160x120, 4,000 splats,
+    motion_scale 0.045, 200 evaluations) over 14 frames, demo_track_torch and
+    repro_f16_torch. Returns their launches."""
+    import torch
+
+    from gslam_tpu_torch.ops import blend
+
+    _bench, study, demo, repro = tools()
+    blend.reset_launches()
+    times = {}
+    t0 = time.perf_counter()
+    oracle = study.main(["oracle", "--frames", str(STUDY_FRAMES)])
+    times["study_oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        recovered = demo.main([out_dir])
+    times["demo_track_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = repro.main([])
+    times["repro_f16_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+
+    errs = np.array(oracle["per_frame_err_m"])
+    objectives = [row[k][f] for row in rows[1:] for k in ("prior", "gt", "diverged", "tracked")
+                  for f in ("photo", "depth", "total")]
+    emit("scripts", nvidia_smi=smi, launches=launches, **times,
+         study_oracle=dict(frames=STUDY_FRAMES, median_err_m=float(np.median(errs)),
+                           max_err_m=float(errs.max()), mean_evals=oracle["mean_evals"]),
+         demo_track=recovered, repro_f16_rows=len(rows))
+    check(len(errs) == STUDY_FRAMES - 1 and np.isfinite(errs).all(),
+          f"study oracle: {len(errs)} errors, finite {np.isfinite(errs).all()}")
+    check(np.median(errs) < 0.01 and errs.max() < 0.05,
+          f"study oracle: median {np.median(errs)} m, largest {errs.max()} m")
+    check(recovered["ok"] and np.isfinite(recovered["pose_err_after_m"]),
+          f"demo_track did not recover: {recovered}")
+    check(len(rows) == 4 and np.isfinite(objectives).all(),
+          f"repro_f16: {len(rows)} lines, objectives finite {np.isfinite(objectives).all()}")
+    check(all(v > 0 for v in launches.values()), f"scripts: a kernel was not launched {launches}")
+    return launches
+
+
 BY_SHAPE = ("max_abs_err", "err_over_limit", "ms", "plain_ms", "bound_ms", "bound_by",
             "segments")
 
@@ -2268,15 +2444,18 @@ def main() -> int:
     phase_sharded_reference()
     sharded_launches = phase_sharded(smi)
     cli_launches, shapes["cli_full_res"] = phase_cli(smi)
+    onemillion_launches = phase_onemillion(smi)
+    scripts_launches = phase_scripts(smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
-    # launches: the six main paths; launches_by_path: each path's own
+    # launches: the main paths; launches_by_path: each path's own
     # count, read just after that path ran with the counters set to 0 before
     # it. The headline numbers are the tracking rows (T=300, M=512); by_shape
     # holds every shape the paths give the kernels
     by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches,
-               "actor": actor_launches, "sharded": sharded_launches, "cli": cli_launches}
+               "actor": actor_launches, "sharded": sharded_launches, "cli": cli_launches,
+               "onemillion": onemillion_launches, "scripts": scripts_launches}
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
                     replaces=replaces[name], launches=sum(p[name] for p in by_path.values()),
                     launches_by_path={k: p[name] for k, p in by_path.items()},

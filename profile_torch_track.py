@@ -2,7 +2,7 @@
 """Where the time of a tracked frame and of a mapping step goes in the
 PyTorch port, on one CUDA card.
 
-    python3 profile_torch_track.py [--section tracking|mapping|gn|all]
+    python3 profile_torch_track.py [--section tracking|mapping|gn|onemillion|all]
                                    [--frames 3] [--trace out.json]
 
 tracking: chip_smoke.py's BASELINE config 1 scene (50,000 splats, 320x240,
@@ -22,6 +22,9 @@ mapping: chip_smoke.py's mapping point (131,072 slots, 100,000 live, a
      the blend kernels' share of the busy time, and host time in named
      ranges: the window loss (projection, binning, gather, blend, losses),
      the binning inside it, the backward, and the masked Adam.
+onemillion: the same at scripts/bench_1m_torch.py's point (2^20 slots,
+1,000,000 live, a 10-keyframe window at 640x480, tile_capacity=256, 4
+pairs per splat).
 gn: the tracking scene's frame 1 tracked with method="gn" (flat x 10 LM
 iterations, then pyr3 x 8) after one warm-up frame; traces one frame of each
 and reports the same device figures per render pass and host time in named
@@ -86,18 +89,28 @@ def trace_summary(prof, ranges, wall_ms, per, per_name):
     }
 
 
-def profile_mapping(smi, trace):
+def onemillion_point():
+    """scripts/bench_1m_torch.py's point on the card, and its width and height."""
+    sys.path.insert(0, str(cs.ROOT / "scripts"))
+    import bench_1m_torch as bench
+
+    return bench.build_point(*bench.point_arrays(), device="cuda"), bench.W, bench.H
+
+
+def profile_mapping(smi, trace, point, W, H, name="mapping"):
+    """The mapping section on `point` (chip_smoke.mapping_point's tuple) at
+    W x H; its JSON parts and trace file are prefixed with `name`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gslam_tpu_torch.mapping import backend_ops
     from gslam_tpu_torch.ops import rasterize
 
-    gmap, opt, kf, pose_opt, widx, wmask, K, cfg = cs.mapping_point()
+    gmap, opt, kf, pose_opt, widx, wmask, K, cfg = point
     state = [gmap, opt, kf, pose_opt]
 
     def step():
-        out = backend_ops.mapping_step(*state, widx, wmask, K, cs.W, cs.H, cfg)
+        out = backend_ops.mapping_step(*state, widx, wmask, K, W, H, cfg)
         state[:] = out[:4]
         return out[4]
 
@@ -111,7 +124,7 @@ def profile_mapping(smi, trace):
         b.record()
         b.synchronize()
         steps.append(a.elapsed_time(b))
-    print(json.dumps({"part": "mapping_step_time", "nvidia_smi": smi, "ms": steps,
+    print(json.dumps({"part": f"{name}_step_time", "nvidia_smi": smi, "ms": steps,
                       "median_ms": float(np.median(steps))}), flush=True)
 
     # each part alone between CUDA events: what it costs the step end to end
@@ -119,15 +132,14 @@ def profile_mapping(smi, trace):
     with torch.no_grad():
         proj = rasterize.project_cameras(
             gmap.means, gmap.quats, torch.exp(gmap.log_scales), gmap.alive,
-            kf.poses()[widx], K[None].expand(len(widx), 3, 3), cs.W, cs.H, cfg.render)
+            kf.poses()[widx], K[None].expand(len(widx), 3, 3), W, H, cfg.render)
     parts = {
         "binning_10_cameras": lambda: rasterize._bin_cameras(
-            proj.means2d, proj.radii, proj.depths, proj.valid, cs.W, cs.H, cfg.render),
-        "window_grads": lambda: backend_ops.window_grads(gmap, kf, widx, wmask, K, cs.W,
-                                                         cs.H, cfg),
+            proj.means2d, proj.radii, proj.depths, proj.valid, W, H, cfg.render),
+        "window_grads": lambda: backend_ops.window_grads(gmap, kf, widx, wmask, K, W, H, cfg),
         "mapping_step": step,
     }
-    print(json.dumps({"part": "mapping_parts", "nvidia_smi": smi,
+    print(json.dumps({"part": f"{name}_parts", "nvidia_smi": smi,
                       "ms": {k: cs.cuda_ms(fn, reps=5, warmup=1) for k, fn in parts.items()}}),
           flush=True)
 
@@ -136,8 +148,8 @@ def profile_mapping(smi, trace):
                (backend_ops, "adam_step", "adam"),
                (torch.autograd, "grad", "backward")]
     saved = [getattr(m, a) for m, a, _ in patched]
-    for m, a, name in patched:
-        setattr(m, a, ranged(name, getattr(m, a)))
+    for m, a, label in patched:
+        setattr(m, a, ranged(label, getattr(m, a)))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -148,11 +160,11 @@ def profile_mapping(smi, trace):
         for (m, a, _), fn in zip(patched, saved):
             setattr(m, a, fn)
     if trace:
-        prof.export_chrome_trace(trace.replace(".json", "_mapping.json"))
-    summary = trace_summary(prof, [name for *_, name in patched], wall_ms, 1, "step")
+        prof.export_chrome_trace(trace.replace(".json", f"_{name}.json"))
+    summary = trace_summary(prof, [label for *_, label in patched], wall_ms, 1, "step")
     summary["host_other_ms"] = wall_ms - sum(
         v for k, v in summary["host_ms"].items() if k != "binning")  # inside window_loss
-    print(json.dumps({"part": "mapping_trace", "nvidia_smi": smi, **summary}), flush=True)
+    print(json.dumps({"part": f"{name}_trace", "nvidia_smi": smi, **summary}), flush=True)
 
 
 def profile_gn(smi, gmap, K, tcfg, poses, gts, trace):
@@ -193,7 +205,7 @@ def profile_gn(smi, gmap, K, tcfg, poses, gts, trace):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--section", choices=("tracking", "mapping", "gn", "all"),
+    ap.add_argument("--section", choices=("tracking", "mapping", "gn", "onemillion", "all"),
                     default="all")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write Chrome traces here")
@@ -208,8 +220,10 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
     if args.section in ("mapping", "all"):
-        profile_mapping(smi, args.trace)
-    if args.section == "mapping":
+        profile_mapping(smi, args.trace, cs.mapping_point(), cs.W, cs.H)
+    if args.section in ("onemillion", "all"):
+        profile_mapping(smi, args.trace, *onemillion_point(), name="onemillion")
+    if args.section in ("mapping", "onemillion"):
         return 0
     from gslam_tpu_torch.core.transforms import se3_exp
     from gslam_tpu_torch.mapping.gaussians import gaussian_map_from_numpy

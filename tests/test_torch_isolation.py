@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of gslam_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package; and an entry point given no
-device on a host without CUDA raises instead of running on the CPU."""
+chip_smoke.py or the port's entry scripts and tools, imports JAX or the JAX
+package; and an entry point given no device on a host without CUDA raises
+instead of running on the CPU."""
 
 import ast
 import subprocess
@@ -14,10 +15,13 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-# the package and the port's entry scripts
+# the package, the port's entry scripts and its tools
+TOOLS = ("scripts/bench_1m_torch.py", "scripts/study_tracking_torch.py",
+         "scripts/repro_f16_torch.py", "scripts/demo_track_torch.py",
+         "scripts/make_npz_dataset_torch.py", "scripts/fit_spline_torch.py", "teleop_torch.py")
 SOURCES = sorted((ROOT / "gslam_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "profile_torch_track.py", "bench_blend.py",
-                             "main_torch.py", "pipeline_torch.py", "view_torch.py")]
+                             "main_torch.py", "pipeline_torch.py", "view_torch.py", *TOOLS)]
 FORBIDDEN = ("jax", "jaxlib", "gslam_tpu")
 
 
@@ -56,7 +60,8 @@ def test_sources_found():
             "gslam_tpu_torch/io/replica.py", "gslam_tpu_torch/io/video.py",
             "gslam_tpu_torch/io/oakd.py", "gslam_tpu_torch/eval/spline.py",
             "gslam_tpu_torch/viz/viewer.py", "gslam_tpu_torch/parallel/__init__.py",
-            "gslam_tpu_torch/parallel/sharding.py", "gslam_tpu_torch/parallel/slam.py"} <= names
+            "gslam_tpu_torch/parallel/sharding.py", "gslam_tpu_torch/parallel/slam.py",
+            *TOOLS} <= names
 
 
 def test_entry_points_refuse_cpu_without_a_device(monkeypatch):
@@ -109,6 +114,40 @@ def test_cli_refuses_cpu_without_a_device(monkeypatch, tmp_path):
         pipeline_torch.main(["--synthetic", "--iters", "1", "--out", str(tmp_path / "p")])
     with pytest.raises(RuntimeError, match="CUDA"):
         view_torch.main([str(tmp_path / "missing.npz")])
+
+
+def test_tools_refuse_cpu_without_a_device(monkeypatch, tmp_path):
+    """Each ported tool that computes with torch, given no --device on a
+    host without CUDA, raises before it builds or writes anything."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import bench_1m_torch
+        import demo_track_torch
+        import fit_spline_torch
+        import make_npz_dataset_torch
+        import repro_f16_torch
+        import study_tracking_torch
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    calls = [
+        (bench_1m_torch, ["--capacity", "64", "--n-live", "32", "--width", "16",
+                          "--height", "16", "--keyframes", "3", "--window", "1"]),
+        (study_tracking_torch, ["oracle", "--frames", "2", "--width", "16", "--height", "16",
+                                "--n-splats", "10"]),
+        (study_tracking_torch, ["mono", "--scene", "raytrace", "--frames", "2"]),
+        (repro_f16_torch, []),
+        (demo_track_torch, [str(tmp_path / "demo")]),
+        (make_npz_dataset_torch, [str(tmp_path / "x.npz"), "--scene", "raytrace",
+                                  "--seq-len", "2", "--width", "16", "--height", "16"]),
+        (fit_spline_torch, ["--steps", "1", "--out", str(tmp_path / "fit.png")]),
+    ]
+    for module, argv in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            module.main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
