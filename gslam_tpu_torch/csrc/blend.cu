@@ -117,14 +117,21 @@ __device__ Tile stage_tile(float* s, const float* xy, const float* con,
 
 // Effective alpha of splat m at pixel (px, py); returns whether it counts
 // (sigma >= 0 and alpha_raw >= alpha_cut) and the raw/clamped alpha.
+// sigma and alpha_raw are rounded op by op in the plain version's order
+// (__fmul_rn/__fadd_rn keep nvcc from contracting them into fmas), so the
+// kernel keeps exactly the pairs the plain version keeps: contracted, a pair
+// within an ulp of alpha_cut could go the other way.
 __device__ __forceinline__ bool splat_alpha(const Tile& tl, int m, float px, float py,
                                             float alpha_cut, float alpha_clamp,
                                             float& dx, float& dy, float& a_raw,
                                             float& alpha) {
   dx = px - tl.x[m];
   dy = py - tl.y[m];
-  const float sigma = 0.5f * (tl.ca[m] * dx * dx + tl.cc[m] * dy * dy) + tl.cb[m] * dx * dy;
-  a_raw = tl.op[m] * expf(-sigma);
+  const float sxx = __fmul_rn(__fmul_rn(tl.ca[m], dx), dx);
+  const float syy = __fmul_rn(__fmul_rn(tl.cc[m], dy), dy);
+  const float sxy = __fmul_rn(__fmul_rn(tl.cb[m], dx), dy);
+  const float sigma = __fadd_rn(__fmul_rn(0.5f, __fadd_rn(sxx, syy)), sxy);
+  a_raw = __fmul_rn(tl.op[m], expf(-sigma));
   const bool ok = (sigma >= 0.0f) && (a_raw >= alpha_cut);
   alpha = ok ? fminf(a_raw, alpha_clamp) : 0.0f;
   return ok;

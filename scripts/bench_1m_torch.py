@@ -4,8 +4,6 @@
 splats at 640x480 (the counterpart of scripts/bench_1m.py).
 
     python scripts/bench_1m_torch.py                 # on the CUDA card
-    python scripts/bench_1m_torch.py --device cpu --capacity 4096 \
-        --n-live 3000 --width 128 --height 96 --fx 112 --keyframes 5 --window 3
 
 Prints one JSON line with bench_1m.py's keys. On a card every time comes
 from CUDA events: `render_ms` and `compact_ms` are a chain of calls
@@ -37,12 +35,12 @@ KF_SPACING = 0.02  # m along x between keyframes
 RENDER_REPS, COMPACT_REPS, MAX_WARMUP, ITERS = 10, 5, 6, 15
 
 
-def point_arrays(cap=CAP, n_live=N_LIVE, width=W, height=H, fx=FX, n_kf=N_KF, seed=0):
+def point_arrays(cap=CAP, n_live=N_LIVE, width=W, height=H, fx=FX, n_kf=N_KF):
     """The point's numpy inputs in bench_1m.py's draw order: the map's fields
     (splats spread over the view frustum at depths 1.2-6 m, colors N(0, 1),
     logit opacity 0.5, the first `n_live` slots alive) and `n_kf` uniform
     random keyframe images."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
     z = rng.uniform(1.2, 6.0, cap).astype(np.float32)
     u = rng.uniform(0, width, cap).astype(np.float32)
     v = rng.uniform(0, height, cap).astype(np.float32)
@@ -146,8 +144,7 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def measure(point, width=W, height=H, render_reps=RENDER_REPS, compact_reps=COMPACT_REPS,
-            iters=ITERS):
+def measure(point, width=W, height=H, iters=ITERS):
     """bench_1m.py's three measurements on `point` (build_point). Returns
     (detail, steps, state): detail holds bench_1m.py's keys and what this
     port adds (blend launches per call, peak memory); steps one record per
@@ -175,18 +172,18 @@ def measure(point, width=W, height=H, render_reps=RENDER_REPS, compact_reps=COMP
     # single-view render at 1M live splats
     out, render_launches = launched(lambda: render_view(gmap, K, width, height, cfg))
     clock.start()
-    for i in range(render_reps):
+    for i in range(RENDER_REPS):
         out = render_view(gmap, K, width, height, cfg, i)
-    render_ms = clock.stop() / render_reps
+    render_ms = clock.stop() / RENDER_REPS
     render_finite = bool(torch.isfinite(out.rgb).all())
     del out
 
     # in-place live-slot compaction at full capacity
     g2, o2 = compact_map(gmap, opt)
     clock.start()
-    for _ in range(compact_reps):
+    for _ in range(COMPACT_REPS):
         g2, o2 = compact_map(g2, o2)
-    compact_ms = clock.stop() / compact_reps
+    compact_ms = clock.stop() / COMPACT_REPS
     del g2, o2
 
     steps = []
@@ -251,27 +248,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; raises where there is none)")
-    ap.add_argument("--capacity", type=int, default=CAP)
-    ap.add_argument("--n-live", type=int, default=N_LIVE)
-    ap.add_argument("--width", type=int, default=W)
-    ap.add_argument("--height", type=int, default=H)
-    ap.add_argument("--fx", type=float, default=FX)
-    ap.add_argument("--keyframes", type=int, default=N_KF)
-    ap.add_argument("--window", type=int, default=WINDOW)
-    ap.add_argument("--iters", type=int, default=ITERS)
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     from gslam_tpu_torch import resolve_device
 
     dev = resolve_device(args.device)
-    fields, images = point_arrays(args.capacity, args.n_live, args.width, args.height,
-                                  args.fx, args.keyframes, args.seed)
-    point = build_point(fields, images, args.width, args.height, args.fx,
-                        window=args.window, device=dev)
-    del fields, images
-    detail, steps, _ = measure(point, args.width, args.height, iters=args.iters)
-    result = result_line(detail, steps, args.width, args.height)
+    point = build_point(*point_arrays(), device=dev)
+    detail, steps, _ = measure(point)
+    result = result_line(detail, steps)
     print(json.dumps(result), flush=True)
     return result
 

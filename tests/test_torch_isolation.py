@@ -133,8 +133,7 @@ def test_tools_refuse_cpu_without_a_device(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     calls = [
-        (bench_1m_torch, ["--capacity", "64", "--n-live", "32", "--width", "16",
-                          "--height", "16", "--keyframes", "3", "--window", "1"]),
+        (bench_1m_torch, []),
         (study_tracking_torch, ["oracle", "--frames", "2", "--width", "16", "--height", "16",
                                 "--n-splats", "10"]),
         (study_tracking_torch, ["mono", "--scene", "raytrace", "--frames", "2"]),

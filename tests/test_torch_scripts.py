@@ -7,6 +7,7 @@ scripts run in this process and their outputs are compared line for line.
 Tolerances are stated at each comparison.
 """
 
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -27,16 +28,46 @@ if str(SCRIPTS) not in sys.path:
 import bench_1m_torch  # noqa: E402
 import decode_run  # noqa: E402
 import fit_spline_torch  # noqa: E402
+import gslam_tpu  # noqa: E402
+import gslam_tpu_torch  # noqa: E402
 import main_torch  # noqa: E402
-import make_npz_dataset as j_make_npz_script  # noqa: E402
 import make_npz_dataset_torch  # noqa: E402
 import repro_f16_torch  # noqa: E402
-import study_tracking as j_study_script  # noqa: E402
 import study_tracking_torch  # noqa: E402
 import teleop  # noqa: E402
 import teleop_torch  # noqa: E402
 
+
+def _load_jax_script(name):
+    """scripts/<name>.py (a JAX script) as a module. Those scripts put a
+    fixed absolute path at the head of sys.path when imported, so sys.path
+    is restored around the import: every later import in this process
+    resolves from this checkout."""
+    saved = list(sys.path)
+    spec = importlib.util.spec_from_file_location(f"jax_script_{name}", SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        sys.path[:] = saved
+    return module
+
+
+_PATH_BEFORE = list(sys.path)
+j_make_npz_script = _load_jax_script("make_npz_dataset")
+j_study_script = _load_jax_script("study_tracking")
+_PATH_AFTER = list(sys.path)
+
 CPU = "cpu"
+
+
+def test_modules_come_from_this_checkout():
+    """Both packages, the scripts and the teleop twins load from this
+    checkout, and loading the JAX scripts left sys.path as it was."""
+    for module in (gslam_tpu, gslam_tpu_torch, teleop, teleop_torch, main_torch,
+                   bench_1m_torch, study_tracking_torch, j_study_script, j_make_npz_script):
+        assert Path(module.__file__).resolve().is_relative_to(ROOT), module.__file__
+    assert _PATH_AFTER == _PATH_BEFORE
 
 
 def _run_script(monkeypatch, capsys, module, argv):
@@ -124,14 +155,16 @@ def test_bench_1m_point_matches_jax():
         assert np.abs(a - b).max() <= 2 * to.DEFAULT_LRS[f] + 1e-6, f
 
 
-def test_bench_1m_script_runs_on_the_cpu(capsys):
-    """The script end to end at a cut size: bench_1m.py's keys, host-clock
-    times, no blend launch (plain versions on the CPU), finite losses."""
-    res = bench_1m_torch.main(["--device", CPU, "--capacity", "2048", "--n-live", "1500",
-                               "--width", "64", "--height", "48", "--fx", "56",
-                               "--keyframes", "4", "--window", "2", "--iters", "2"])
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line == json.loads(json.dumps(res))
+def test_bench_1m_script_runs_on_the_cpu():
+    """The script's measurement at a cut size (2,048 slots, 1,500 live,
+    64x48, a window of 2 of 4 keyframes, 2 timed steps), through the
+    functions main() chains: bench_1m.py's keys, host-clock times, no blend
+    launch (plain versions on the CPU), finite losses."""
+    fields, images = bench_1m_torch.point_arrays(2048, 1500, 64, 48, 56.0, 4)
+    point = bench_1m_torch.build_point(fields, images, 64, 48, 56.0, window=2, device=CPU)
+    detail, steps, _ = bench_1m_torch.measure(point, 64, 48, iters=2)
+    line = json.loads(json.dumps(bench_1m_torch.result_line(detail, steps, 64, 48)))
+    assert line["value"] == detail["mapping_iter_ms"] and "64x48" in line["metric"]
     d = line["detail"]
     for key in ("capacity", "n_live", "render_ms", "compact_ms", "mapping_iter_ms",
                 "mapping_passes_per_s"):
@@ -140,6 +173,7 @@ def test_bench_1m_script_runs_on_the_cpu(capsys):
     assert d["device_mapping_iter_ms"] is None and d["nvidia_smi"] is None
     assert d["blend_launches_per_step"] == {"blend_fwd": 0, "blend_bwd": 0}
     assert d["render_finite"] and np.isfinite(d["photometric_loss"]).all()
+    assert sum(not s["warmup"] for s in steps) == 2
 
 
 # --------------------------------------------- scripts/study_tracking_torch.py
