@@ -57,7 +57,14 @@ Phases, one JSON line each:
      before its first trial), and where none parts the pose must be within
      2 mm and 2 mrad. A whole monocular CPU run beside the card's must take
      the same keyframes, inserts and mapping iterations; its pose and
-     live-count gaps are printed.
+     live-count gaps are printed. bootstrap_stepped: each of the RGB-D frame
+     0's 40 mapping iterations is also run on the CPU from a copy of the
+     card's state before it (mapping_step_agreement, STEP_TOL): losses,
+     gradients, tile lists, n_pairs, radii > 0, n_touched, the decay mask,
+     Adam's step signs and the updated fields must agree but for recorded
+     ties (a value within float32 rounding of its threshold on both sides);
+     the first iteration and output that part beyond that is printed, and
+     must not exist.
   8. slam: the third main path. FusedSlam.run over 12 frames of the port's
      synthetic room (10,000 splats, 320x240, fx=288, ~1.5 cm per frame,
      monocular) with every FusedConfig, TrackingConfig and MapConfig default
@@ -974,6 +981,14 @@ def slam_small_cfg():
         max_frames=16, init_n_new=400, kf_n_new=50, idle_iters=5)
 
 
+def with_gt_depths(cfg):
+    """A fused configuration (either package's) in RGB-D mode."""
+    return dataclasses.replace(
+        cfg, use_gt_depths=True,
+        tracking=dataclasses.replace(cfg.tracking, use_gt_depths=True),
+        mapping=dataclasses.replace(cfg.mapping, use_gt_depths=True))
+
+
 def pose_gap(a, b):
     """Largest translation gap (m) and rotation angle (rad) between two
     [n, 4, 4] pose stacks."""
@@ -1066,12 +1081,356 @@ def prune_ties(card, cpu, threshold):
                 opacity_cpu=ob[split].tolist(), opacity_gap=gap, explained=explained)
 
 
-def slam_replay(cfg, ds, w, h, cap, kf_cap):
+# ---- one mapping_step at a time from a shared state (bootstrap_stepped) ----
+#
+# Side a is the one under test (the card; the port in
+# tests/test_torch_bootstrap_stepped.py), side b the reference (the CPU; the
+# JAX package). Both step from the same state. A discrete output that differs
+# is a tie when every value that decides it lies within float32 rounding of
+# its threshold on both sides; any other discrete difference, and any
+# continuous gap beyond the tolerances left after the ties, is a fault.
+STEP_TOL = dict(
+    loss_rtol=1e-5,  # total and photometric loss, relative
+    grad_rel=1e-4,  # |g_a - g_b| / |g_b| per field, after the ties below
+    # the rotation's gradient scales with a splat's anisotropy, which starts
+    # at 0 (every insert is isotropic): near it the gradient is cancellation
+    grad_rel_quats=1e-3,
+    clear_g=1e-4,  # a gradient entry is clear of zero above this on both sides...
+    clear_mu=1e-5,  # ...and so is its new first moment (m moves by 0.1 g)
+    field_atol=1e-6,  # updated fields on clear entries: atol + rtol |p|
+    field_rtol=1e-6,  # (tests/test_torch_mapping.py's, where |g| > 1e-4)
+    round_rel=1e-5,  # a value within rounding of a threshold, relative
+    alpha_band=1e-5,  # alpha_cut * (1 +- this): the band where the cut is rounding
+    iso_rel=2e-6,  # |e^s - e^mean(s)| below this share of e^s: the isotropic |.| at its kink
+    touched_share=1e-3,  # n_touched off by one on at most this share of live entries
+)
+STEP_TOL_TEXT = (
+    "from a shared state, per iteration: total and photometric loss rtol 1e-5; each "
+    "gradient |g_a - g_b| / |g_b| <= 1e-4 after ties (quats 1e-3: its gradient scales "
+    "with the splat's anisotropy, 0 at insertion); where |g| > 1e-4 and the new "
+    "first moment |m| > 1e-5 on both sides, Adam's step has one sign and each updated "
+    "field is within 1e-6 + 1e-6 |p|; tile lists, n_pairs, radii > 0 and the opacity-"
+    "decay mask equal; n_touched equal but off by one on <= 0.1% of live entries "
+    "(at least 1). Ties, recorded: a binning value (x +- r at a tile edge or the image "
+    "border, 3 sigma at the radius ceil, depth at the near plane, two depths in a "
+    "tile's order) within 1e-5 of its threshold on both sides; a splat at the "
+    "isotropic loss's kink (|e^s - e^mean(s)| <= 2e-6 e^s), whose gradient may flip "
+    "by 2 w e^s, and the rotation of a splat with all three there, whose gradient is 0 "
+    "but for rounding; a pixel's alpha within 1e-5 of alpha_cut, whose share of each "
+    "output is what side a's own steps at alpha_cut * (1 +- 1e-5) move it by")
+
+
+class StepCapture:
+    """Records, while in a `with` block, what a port mapping_step computes
+    inside: its render's projection (ops.rasterize.project_cameras), tile
+    lists (ops.rasterize._bin_cameras) and window-loss gradients
+    (mapping.backend_ops.window_grads), the first call of each."""
+
+    TARGETS = (("gslam_tpu_torch.ops.rasterize", "project_cameras"),
+               ("gslam_tpu_torch.ops.rasterize", "_bin_cameras"),
+               ("gslam_tpu_torch.mapping.backend_ops", "window_grads"))
+
+    def __enter__(self):
+        import importlib
+
+        self.seen, self._orig = {}, []
+        for module_name, attr in self.TARGETS:
+            module = importlib.import_module(module_name)
+            orig = getattr(module, attr)
+
+            def wrapped(*a, _orig=orig, _attr=attr, **kw):
+                out = _orig(*a, **kw)
+                self.seen.setdefault(_attr, out)
+                return out
+
+            setattr(module, attr, wrapped)
+            self._orig.append((module, attr, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, orig in self._orig:
+            setattr(module, attr, orig)
+
+
+def port_step(args, cfg):
+    """One port mapping_step on (gmap, opt_state, kf, pose_opt, widx, wmask,
+    K, width, height) as a step record: numpy arrays of what the comparison
+    reads (the keys of mapping_step_agreement), and the step's outputs."""
+    from gslam_tpu_torch.mapping.backend_ops import mapping_step
+    from gslam_tpu_torch.mapping.gaussians import TRAINABLE_FIELDS
+
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    gmap0, wmask = args[0], args[5]
+    with StepCapture() as cap:
+        out = mapping_step(*args, cfg)
+    gmap, opt, _kf, _pose_opt, aux = out
+    proj, bins, wg = (cap.seen[k] for k in ("project_cameras", "_bin_cameras", "window_grads"))
+    rec = dict(
+        total_loss=float(aux.total_loss), photometric_loss=float(aux.photometric_loss),
+        cam_mask=n(wmask), means2d=n(proj.means2d), radii_proj=n(proj.radii),
+        depths=n(proj.depths), conics=n(proj.conics), valid=n(proj.valid),
+        tile_gauss=n(bins.tile_gauss), tile_mask=n(bins.tile_mask), n_pairs=n(bins.n_pairs),
+        radii=n(aux.radii), n_touched=n(aux.n_touched),
+        decay=n(((aux.radii > 0).sum(0) > 1) & gmap0.alive), g_pose=n(wg.g_pose))
+    for f in TRAINABLE_FIELDS:
+        rec[f"g/{f}"], rec[f"mu/{f}"] = n(wg.g_map[f]), n(opt.mu[f])
+        rec[f"p/{f}"] = n(getattr(gmap, f))
+    return rec, out
+
+
+def alpha_band_cfgs(cfg):
+    """cfg with alpha_cut moved to the two edges of its rounding band."""
+    r = cfg.render
+    return [dataclasses.replace(cfg, render=dataclasses.replace(
+        r, alpha_cut=r.alpha_cut * (1.0 + s * STEP_TOL["alpha_band"]))) for s in (1, -1)]
+
+
+def _binning_values(side, c, s, r, rcfg, width, height):
+    """The binning thresholds that slot s of camera c lies within rounding
+    of on one side (radius r: the larger of the two sides')."""
+    tol = STEP_TOL["round_rel"]
+    x, y = (float(v) for v in side["means2d"][c, s])
+    z = float(side["depths"][c, s])
+    ts = rcfg.tile_size
+    near = set()
+    for name, q in (("x-r", x - r), ("x+r", x + r), ("y-r", y - r), ("y+r", y + r)):
+        lim = width if name[0] == "x" else height
+        for what, thr in (("tile edge", ts * round(q / ts)), ("border", lim)):
+            if abs(q - thr) <= tol * max(abs(q), ts):
+                near.add(f"{name} at {what}")
+    ca, cb, cc = (float(v) for v in side["conics"][c, s])
+    det = ca * cc - cb * cb
+    if det > 0:  # the covariance is the conic's inverse: its larger eigenvalue
+        mid = 0.5 * (ca + cc) / det
+        three_sigma = 3.0 * np.sqrt(mid + np.sqrt(max(mid * mid - 1.0 / det, 0.0)))
+        if abs(three_sigma - round(three_sigma)) <= tol * max(three_sigma, 1.0):
+            near.add("3 sigma at the radius ceil")
+    if abs(z - rcfg.near) <= tol * max(abs(z), rcfg.near):
+        near.add("depth at the near plane")
+    return near
+
+
+def _footprints(side, rcfg, tiles_x, tiles_y):
+    """[C, N, 5] tile rectangle (x0, y0, span_x, span_y) and valid of every
+    slot, in float32 as binning computes them from the same inputs."""
+    ts, ms = np.float32(rcfg.tile_size), rcfg.max_span
+    m2d, r = side["means2d"].astype(np.float32), side["radii_proj"].astype(np.float32)
+    x, y = m2d[..., 0], m2d[..., 1]
+
+    def tile(v, hi):
+        return np.clip(np.floor(v / ts), 0, hi - 1).astype(np.int64)
+
+    tx0, tx1, ty0, ty1 = tile(x - r, tiles_x), tile(x + r, tiles_x), \
+        tile(y - r, tiles_y), tile(y + r, tiles_y)
+    sx, sy = tx1 - tx0 + 1, ty1 - ty0 + 1
+    tx0 = np.where(sx > ms, np.clip(tile(x, tiles_x) - ms // 2, 0, tiles_x - ms), tx0)
+    ty0 = np.where(sy > ms, np.clip(tile(y, tiles_y) - ms // 2, 0, tiles_y - ms), ty0)
+    sx, sy = np.minimum(sx, ms), np.minimum(sy, ms)
+    return np.stack([tx0, ty0, sx, sy, side["valid"].astype(np.int64)], -1)
+
+
+def _depth_tie(a, b, c, u, v):
+    tol = STEP_TOL["round_rel"]
+    return all(abs(float(s["depths"][c, u]) - float(s["depths"][c, v]))
+               <= tol * abs(float(s["depths"][c, u])) for s in (a, b))
+
+
+def _list_tie(la, lb, drop, a, b, c):
+    """Whether two front-to-back tile lists differ only by the slots in
+    `drop` (binning ties), neighbours swapped at a depth tie, and the tail
+    that a dropped slot shifts past the tile's capacity."""
+    la, lb = [s for s in la if s not in drop], [s for s in lb if s not in drop]
+    i, n = 0, min(len(la), len(lb))
+    while i < n:
+        if la[i] == lb[i]:
+            i += 1
+        elif (i + 1 < n and la[i] == lb[i + 1] and la[i + 1] == lb[i]
+              and _depth_tie(a, b, c, la[i], la[i + 1])):
+            i += 2
+        else:
+            return False
+    return abs(len(la) - len(lb)) <= len(drop)
+
+
+def binning_agreement(a, b, rcfg, width, height):
+    """Tile lists, n_pairs and radii > 0 of the real cameras: the slots
+    whose binning differs, each with the thresholds it ties at (empty: a
+    fault), and the tiles whose lists differ beyond those ties."""
+    tiles_x, tiles_y = -(-width // rcfg.tile_size), -(-height // rcfg.tile_size)
+    fa, fb = _footprints(a, rcfg, tiles_x, tiles_y), _footprints(b, rcfg, tiles_x, tiles_y)
+    ties, faults = [], []
+    for c in np.nonzero(b["cam_mask"])[0]:
+        slots = np.nonzero((fa[c] != fb[c]).any(-1) | (a["radii_proj"][c] != b["radii_proj"][c])
+                           | ((a["radii"][c] > 0) != (b["radii"][c] > 0)))[0]
+        tied = set()
+        for s in slots:
+            r = float(max(a["radii_proj"][c, s], b["radii_proj"][c, s]))
+            why = sorted(_binning_values(a, c, s, r, rcfg, width, height)
+                         & _binning_values(b, c, s, r, rcfg, width, height))
+            (ties if why else faults).append(dict(cam=int(c), slot=int(s), why=why))
+            if why:
+                tied.add(int(s))
+        for t in range(a["tile_gauss"].shape[1]):
+            la = a["tile_gauss"][c, t][a["tile_mask"][c, t]].tolist()
+            lb = b["tile_gauss"][c, t][b["tile_mask"][c, t]].tolist()
+            if la != lb and not _list_tie(la, lb, tied, a, b, c):
+                faults.append(dict(cam=int(c), tile=t, why="tile list"))
+        if a["n_pairs"][c] != b["n_pairs"][c] and not tied:
+            faults.append(dict(cam=int(c), why="n_pairs", n_pairs=[int(a["n_pairs"][c]),
+                                                                   int(b["n_pairs"][c])]))
+    return ties, faults
+
+
+def mapping_step_agreement(a, b, band, shared, mcfg, width, height):
+    """One iteration's comparison of side a with side b from the shared
+    pre-step state `shared` (numpy: log_scales, alive). `band()` gives side
+    a's step records at alpha_cut * (1 +- alpha_band); it is called, and
+    the comparison made again with what it moves taken out, only where the
+    first comparison finds a fault. Returns the iteration's gaps, ties and
+    faults (the names of the outputs that part beyond rounding)."""
+    rec = _step_gaps(a, b, [], shared, mcfg, width, height)
+    if rec["faults"]:
+        rec = _step_gaps(a, b, band(), shared, mcfg, width, height)
+    return rec
+
+
+def _step_gaps(a, b, band, shared, mcfg, width, height):
+    from gslam_tpu_torch.mapping.gaussians import TRAINABLE_FIELDS
+
+    tol = STEP_TOL
+    faults = []
+
+    def moved(key):  # how far the alpha-cut band moves side a's output
+        return sum((np.abs(np.asarray(x[key], np.float64) - np.asarray(a[key], np.float64))
+                    for x in band), np.zeros(np.shape(a[key])))
+
+    rec = {}
+    for k in ("total_loss", "photometric_loss"):
+        rec[k] = [a[k], b[k]]
+        if max(abs(a[k] - b[k]) - moved(k), 0.0) > tol["loss_rtol"] * abs(b[k]):
+            faults.append(k)
+
+    bin_ties, bin_faults = binning_agreement(a, b, mcfg.render, width, height)
+    faults += [f"binning {f}" for f in bin_faults]
+    tied_slots = {t["slot"] for t in bin_ties}
+    rec["n_pairs"] = [a["n_pairs"][b["cam_mask"]].tolist(), b["n_pairs"][b["cam_mask"]].tolist()]
+    decay_off = set(np.nonzero(a["decay"] != b["decay"])[0].tolist()) - tied_slots
+    if decay_off:
+        faults.append(f"opacity-decay mask at slots {sorted(decay_off)[:10]}")
+
+    live = int(shared["alive"].sum()) * int(b["cam_mask"].sum())
+    allowed = max(1, int(np.ceil(tol["touched_share"] * live)))
+    off = np.abs(a["n_touched"].astype(np.int64) - b["n_touched"]) - moved("n_touched")
+    off[:, sorted(tied_slots)] = 0
+    rec["n_touched_off"] = int((off > 0).sum())
+    if off.max() > 1 or rec["n_touched_off"] > allowed:
+        faults.append("n_touched")
+
+    # the isotropic loss |e^s - e^mean(s)| at its kink: which side of it the
+    # float32 mean lands on is rounding, and Adam steps either way by ~lr
+    ls = shared["log_scales"].astype(np.float64)
+    e = np.exp(ls)
+    kink = (np.abs(e - np.exp(ls.mean(1, keepdims=True))) <= tol["iso_rel"] * e) \
+        & shared["alive"][:, None]
+    flip = 2.0 * mcfg.isotropic_weight * e
+    rec.update(iso_kink=int(kink.sum()), iso_splats=int(kink.all(1).sum()), grad_rel={},
+               grad_rel_raw={}, sign_flips={}, field_gap={}, alpha_band_entries=0)
+    for f in TRAINABLE_FIELDS:
+        ga, gb = a[f"g/{f}"].astype(np.float64), b[f"g/{f}"].astype(np.float64)
+        gap = np.maximum(np.abs(ga - gb) - moved(f"g/{f}"), 0.0)
+        norm = max(float(np.linalg.norm(gb)), 1e-30)
+        rec["grad_rel_raw"][f] = float(np.linalg.norm(ga - gb)) / norm
+        at_kink = np.zeros(ga.shape, bool)
+        if f == "log_scales":
+            at_kink = kink
+            rec["iso_flips"] = int((at_kink & (gap > 0.5 * flip)).sum())
+            gap = np.where(at_kink, np.maximum(gap - flip, 0.0), gap)
+        elif f == "quats":  # an isotropic splat's covariance ignores its rotation
+            at_kink = np.broadcast_to(kink.all(1)[:, None], ga.shape)
+            gap = np.where(at_kink, 0.0, gap)
+        rec["grad_rel"][f] = float(np.linalg.norm(gap)) / norm
+        if rec["grad_rel"][f] > tol["grad_rel_quats" if f == "quats" else "grad_rel"]:
+            faults.append(f"gradient {f}")
+        in_band = moved(f"g/{f}") > 0
+        rec["alpha_band_entries"] += int(in_band.sum())
+        ma, mb = a[f"mu/{f}"], b[f"mu/{f}"]
+        clear = ((np.abs(ga) > tol["clear_g"]) & (np.abs(gb) > tol["clear_g"])
+                 & (np.abs(ma) > tol["clear_mu"]) & (np.abs(mb) > tol["clear_mu"])
+                 & ~at_kink & ~in_band)
+        rec["sign_flips"][f] = int((np.sign(ma) != np.sign(mb))[clear].sum())
+        if rec["sign_flips"][f]:
+            faults.append(f"Adam step sign {f}")
+        pb = b[f"p/{f}"].astype(np.float64)
+        pgap = np.maximum(np.abs(a[f"p/{f}"] - pb) - moved(f"p/{f}"), 0.0)[clear]
+        rec["field_gap"][f] = float(pgap.max()) if pgap.size else 0.0
+        if (pgap > tol["field_atol"] + tol["field_rtol"] * np.abs(pb[clear])).any():
+            faults.append(f"updated {f}")
+    gpa, gpb = a["g_pose"].astype(np.float64), b["g_pose"].astype(np.float64)
+    rec["grad_rel"]["pose"] = float(np.maximum(np.abs(gpa - gpb) - moved("g_pose"), 0.0)
+                                    .max() / max(np.abs(gpb).max(), 1e-30))
+    if rec["grad_rel"]["pose"] > tol["grad_rel"]:
+        faults.append("gradient pose")
+    rec.update(binning_ties=bin_ties, faults=faults)
+    return rec
+
+
+def stepped_summary(records):
+    """The first iteration and output where the sides part beyond rounding
+    (None if none does), and the ties over the run."""
+    first = next(({"iteration": k, "tensor": r["faults"][0]}
+                  for k, r in enumerate(records) if r["faults"]), None)
+    return dict(first_part=first, iterations=len(records),
+                iso_flips=[r["iso_flips"] for r in records],
+                binning_ties=sum(len(r["binning_ties"]) for r in records),
+                alpha_band_iterations=[k for k, r in enumerate(records)
+                                       if r["alpha_band_entries"]])
+
+
+class BootstrapStepper:
+    """While in a `with` block, each mapping_step that runtime.fused runs on
+    the card is also run on the CPU from a copy of the card's state before
+    it (and the card's step again at the edges of the alpha-cut band where
+    the comparison asks for it); each iteration is compared
+    (mapping_step_agreement) and the card's own result returned, so the
+    card's run goes on as it would."""
+
+    def __enter__(self):
+        import gslam_tpu_torch.runtime.fused as fused
+
+        self.records, self._fused = [], fused
+        self._orig = fused.mapping_step
+
+        def stepped(*args):
+            *state, width, height, cfg = args
+            shared = dict(log_scales=state[0].log_scales.cpu().numpy(),
+                          alive=state[0].alive.cpu().numpy())
+            b, _ = port_step((*_moved(state, "cpu"), width, height), cfg)
+            a, out = port_step((*state, width, height), cfg)
+
+            def band():
+                return [port_step((*state, width, height), c)[0] for c in alpha_band_cfgs(cfg)]
+
+            self.records.append(mapping_step_agreement(a, b, band, shared, cfg, width, height))
+            return out
+
+        fused.mapping_step = stepped
+        return self
+
+    def __exit__(self, *exc):
+        self._fused.mapping_step = self._orig
+
+
+def slam_replay(cfg, ds, w, h, cap, kf_cap, stepped=False):
     """Steps `ds` on the card, each frame stepped again on the CPU from a
     copy of the card's state before it (the same draws: the CPU generator).
     Returns the card's final state and per frame the pose gap, the
     keyframe flag and counts of both, and where the trackers' evaluations
-    part."""
+    part; with `stepped`, also frame 0's mapping iterations compared one
+    at a time from the card's state (BootstrapStepper), else None."""
+    import contextlib
+
     from gslam_tpu_torch.runtime.checkpoint import fused_state_from_numpy, state_leaves
     from gslam_tpu_torch.runtime.fused import init_fused_state, slam_step
 
@@ -1080,13 +1439,16 @@ def slam_replay(cfg, ds, w, h, cap, kf_cap):
         return fused_state_from_numpy(leaves, cfg, device="cpu")
 
     state = init_fused_state(cfg, cap, kf_cap, h, w, seed=0, device="cuda")
-    frames = []
+    frames, records = [], None
     for i in range(len(ds)):
         args = (ds.images[i], ds.depths[i], ds.camera.K, w, h, cfg)
         with EvalRecorder() as cpu_evals:
             cpu = slam_step(to_cpu(state), *args)
-        with EvalRecorder() as card_evals:
+        stepper = BootstrapStepper() if stepped and i == 0 else contextlib.nullcontext()
+        with EvalRecorder() as card_evals, stepper:
             state = slam_step(state, *args)
+        if stepped and i == 0:
+            records = stepper.records
         dt, drot = pose_gap(state.traj[i:i + 1].cpu(), cpu.traj[i:i + 1])
         frames.append(dict(frame=i, pose_gap_m=dt, rot_gap_rad=drot,
                            keyframe=[bool(state.kf_flags[i]), bool(cpu.kf_flags[i])],
@@ -1096,7 +1458,7 @@ def slam_replay(cfg, ds, w, h, cap, kf_cap):
                                                      cfg.tracking.warmup_steps),
                            prune_ties=prune_ties(state, cpu,
                                                  cfg.mapping.opacity_prune_threshold)))
-    return state, frames
+    return state, frames, records
 
 
 def phase_slam_reference():
@@ -1115,19 +1477,19 @@ def phase_slam_reference():
     stops in a flat basin, where such a branch moves the pose by
     millimetres.) A whole monocular CPU run is compared too: its discrete
     decisions must match the card's; its pose and live-count gaps are
-    printed."""
+    printed. The RGB-D bootstrap is also compared one mapping iteration at
+    a time from the card's state (`bootstrap_stepped`): no iteration may
+    part beyond STEP_TOL once its ties are taken out."""
     from gslam_tpu_torch.io.synthetic import SyntheticDataset
     from gslam_tpu_torch.runtime.fused import FusedSlam
 
     w, h, cap, kf_cap = 64, 48, 2048, 8
     ds = SyntheticDataset(seq_len=4, width=w, height=h, n_splats=400, seed=3, device="cpu")
     mono = slam_small_cfg()
-    rgbd = dataclasses.replace(
-        mono, use_gt_depths=True,
-        tracking=dataclasses.replace(mono.tracking, use_gt_depths=True),
-        mapping=dataclasses.replace(mono.mapping, use_gt_depths=True))
-    state, mono_frames = slam_replay(mono, ds, w, h, cap, kf_cap)
-    _, rgbd_frames = slam_replay(rgbd, ds, w, h, cap, kf_cap)
+    rgbd = with_gt_depths(mono)
+    state, mono_frames, _ = slam_replay(mono, ds, w, h, cap, kf_cap)
+    _, rgbd_frames, steps = slam_replay(rgbd, ds, w, h, cap, kf_cap, stepped=True)
+    stepped = dict(stepped_summary(steps), per_iteration=steps, tolerance=STEP_TOL_TEXT)
     cuda_traj = state.traj[:len(ds)].cpu().numpy()
     slam = FusedSlam(mono, w, h, capacity=cap, kf_capacity=kf_cap, seed=0, device="cpu")
     mc = slam.run(ds, chunk=1, sync_every=0)
@@ -1135,7 +1497,8 @@ def phase_slam_reference():
                  inserted_total=int(state.inserted_total),
                  total_map_iters=int(state.total_map_iters), N=int(state.live_count))
     wdt, wdrot = pose_gap(cuda_traj, slam.trajectory)
-    emit("slam_reference", mono=mono_frames, rgbd=rgbd_frames, whole_cuda=whole,
+    emit("slam_reference", mono=mono_frames, rgbd=rgbd_frames, bootstrap_stepped=stepped,
+         whole_cuda=whole,
          whole_cpu={k: mc[k] for k in whole}, whole_pose_gap_m=wdt, whole_rot_gap_rad=wdrot,
          tolerance="per frame from the card's state: keyframe flag and counts equal, except "
                    "live counts split only by opacity-prune ties (the dropping side below "
@@ -1164,6 +1527,11 @@ def phase_slam_reference():
                       f"{where}: tracking evaluations part before the line search: {t}")
     for k in ("kf_frames", "inserted_total", "total_map_iters"):
         check(whole[k] == mc[k], f"slam_reference: whole runs: {k} cuda {whole[k]}, cpu {mc[k]}")
+    check(len(steps) == rgbd.mapping.num_iters_init,
+          f"slam_reference: {len(steps)} bootstrap iterations stepped")
+    check(stepped["first_part"] is None,
+          f"slam_reference: the bootstrap parts from a shared state at {stepped['first_part']}: "
+          f"{steps[stepped['first_part']['iteration']] if stepped['first_part'] else ''}")
 
 
 class FrameClock:

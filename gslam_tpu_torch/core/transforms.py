@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gslam_tpu_torch import resolve_device
+
 # The 6D identity rotation (two orthonormal columns of I).
 IDENTITY_6D = np.array([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], dtype=np.float32)
 
@@ -181,11 +183,29 @@ class PoseDelta(NamedTuple):
     d_t: torch.Tensor  # [..., 3]
 
 
+def identity_pose_delta(base: torch.Tensor | None = None,
+                        device: str | torch.device | None = None) -> PoseDelta:
+    """A zero delta on `base` ([..., 4, 4], made float32; the identity on
+    `device`, CUDA by default, when None)."""
+    if base is None:
+        base = torch.eye(4, device=resolve_device(device))
+    base = base.to(torch.float32)
+    batch = base.shape[:-2]
+    return PoseDelta(base=base,
+                     d_rot6=torch.zeros(batch + (6,), device=base.device),
+                     d_t=torch.zeros(batch + (3,), device=base.device))
+
+
 def pose_matrix(p: PoseDelta) -> torch.Tensor:
     """Realize a PoseDelta into a 4x4 world-to-camera matrix (differentiable)."""
     ident = torch.as_tensor(IDENTITY_6D, device=p.d_rot6.device)
     rot = rotation_6d_to_matrix(p.d_rot6 + ident)
     return p.base @ _homogeneous(rot, p.d_t)
+
+
+def rebase_pose(p: PoseDelta) -> PoseDelta:
+    """Fold the current delta into the base, resetting the delta to zero."""
+    return identity_pose_delta(pose_matrix(p))
 
 
 def invert_se3(m: torch.Tensor) -> torch.Tensor:

@@ -187,3 +187,8 @@ def lbfgs_impl(
         n_evals += ls_evals
         it += 1
     return LbfgsResult(x=x.to(dev), f=f.to(dev), g=g.to(dev), n_evals=n_evals, n_iters=it)
+
+
+# The JAX package's public entry point is lbfgs_impl under jit; an eager
+# loop needs no wrapper.
+lbfgs = lbfgs_impl

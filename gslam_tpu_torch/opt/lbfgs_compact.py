@@ -224,3 +224,8 @@ def warmup_lbfgs_impl(
         else:
             do_zoom(f, g, dd)
     return c.x, c.f, c.n_evals
+
+
+# The JAX package's public entry point is warmup_lbfgs_impl under jit; an
+# eager loop needs no wrapper.
+warmup_lbfgs = warmup_lbfgs_impl

@@ -91,8 +91,8 @@ def main(argv=None):
 
     from gslam_tpu_torch import resolve_device
     from gslam_tpu_torch.core.transforms import se3_exp
-    from gslam_tpu_torch.ops.rasterize import RenderConfig, render
-    from gslam_tpu_torch.tracking.track import TrackingConfig, track_frame
+    from gslam_tpu_torch.ops import RenderConfig, render
+    from gslam_tpu_torch.tracking import TrackingConfig, track_frame
 
     dev = resolve_device(args.device)
     out_dir = Path(args.out_dir)

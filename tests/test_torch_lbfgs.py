@@ -35,7 +35,6 @@ from gslam_tpu_torch.io.synthetic import SyntheticDataset  # noqa: E402
 from gslam_tpu_torch.mapping import backend_ops as tb  # noqa: E402
 from gslam_tpu_torch.mapping import gaussians as tg  # noqa: E402
 from gslam_tpu_torch.mapping import keyframes as tk  # noqa: E402
-from gslam_tpu_torch.opt import lbfgs as tl  # noqa: E402
 from gslam_tpu_torch.ops.rasterize import RenderConfig  # noqa: E402
 from gslam_tpu_torch.runtime.system import SlamConfig, SlamSystem  # noqa: E402
 from gslam_tpu_torch.tracking import track as tt  # noqa: E402
@@ -44,8 +43,9 @@ from gslam_tpu_torch.tracking import warp as tw  # noqa: E402
 from test_torch_insertion import JaxDraws  # noqa: E402
 
 CPU = "cpu"
-# the module (gslam_tpu.opt's `lbfgs` names the jitted function)
+# the modules (each package's opt/__init__ binds `lbfgs` to its entry point)
 jl = importlib.import_module("gslam_tpu.opt.lbfgs")
+tl = importlib.import_module("gslam_tpu_torch.opt.lbfgs")
 
 
 def T(x):
