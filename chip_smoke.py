@@ -150,6 +150,14 @@ Phases, one JSON line each:
      finite, median < 1 cm, largest < 5 cm), demo_track_torch (the pose
      recovered, its PNGs in a temporary directory) and repro_f16_torch (its
      four lines, every objective finite).
+ 16. bench: the eighth main path, bench_torch.py's tracking, mapping and
+     onemillion sections in this process at full width (BENCH_DEPTH: loops
+     of 3 frames, marginal lengths 2 against 4 igs frames, 1 against 3 GN
+     frames and 5 against 10 mapping steps, 3 timed steps at 1M): every
+     part of bench.py with its keys, finite, timed by CUDA events, with a
+     profiled device busy time; launches of each igs frame equal to its
+     evaluations, none in GN, 10 + 10 a mapping step, 1 + 0 a 1M render; the
+     headline is the GN part's rate.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -200,13 +208,14 @@ def emit(phase, **payload):
 
 
 def make_map_fields(cap, n_live, rng, scale_lo=0.004, scale_hi=0.016,
-                    z_hi=4.5, opacity=1.5):
+                    z_hi=4.5, opacity=1.5, width=W, height=H, fx=FX):
     """The benchmark's synthetic map (bench.py `_make_map`), as numpy fields:
-    splats spread over the view frustum at depths 1.2-4.5."""
+    splats spread over the frustum of a width x height view with focal
+    length fx, at depths 1.2-z_hi."""
     z = rng.uniform(1.2, z_hi, cap).astype(np.float32)
-    u = rng.uniform(0, W, cap).astype(np.float32)
-    v = rng.uniform(0, H, cap).astype(np.float32)
-    means = np.stack([(u - W / 2) * z / FX, (v - H / 2) * z / FX, z], -1)
+    u = rng.uniform(0, width, cap).astype(np.float32)
+    v = rng.uniform(0, height, cap).astype(np.float32)
+    means = np.stack([(u - width / 2) * z / fx, (v - height / 2) * z / fx, z], -1)
     alive = np.zeros(cap, bool)
     alive[:n_live] = True
     return dict(
@@ -2809,6 +2818,72 @@ def phase_scripts(smi):
     return launches
 
 
+# the bench path's depth: bench_torch.py's sections at full width, cut in frames and steps
+BENCH_DEPTH = {
+    "tracking": dict(n_frames=3, marginal={"tracking_device": (2, 4),
+                                           "tracking_device_converged": (2, 4),
+                                           "tracking_device_gn": (1, 3)}),
+    "mapping": dict(marginal=(5, 10)),
+    "onemillion": dict(iters=3),
+}
+
+
+def phase_bench(smi):
+    """The eighth main path: bench_torch.py's three sections in this
+    process on the card at full width and BENCH_DEPTH's cut depth, with the
+    launch counters set to 0 just before them. Every part must land with
+    bench.py's keys, finite numbers, CUDA-event times and a profiled device
+    busy time; each igs frame launches each kernel once per evaluation, a GN
+    frame none, a mapping step one of each per window camera and a 1M
+    render one forward. Returns the launches."""
+    import torch
+
+    import bench_torch
+    from gslam_tpu_torch.ops import blend
+
+    blend.reset_launches()
+    parts, times = {}, {}
+    for section, run in bench_torch.SECTIONS.items():
+        t0 = time.perf_counter()
+        parts.update(run(device="cuda", **BENCH_DEPTH[section]))
+        times[f"{section}_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(blend.launches)
+    headline = bench_torch._summarize(parts)
+    emit("bench", nvidia_smi=smi, launches=launches, **times,
+         headline={k: v for k, v in headline.items() if k != "detail"})
+
+    check(list(parts) == [p for ps in bench_torch.SECTION_PARTS.values() for p in ps],
+          f"bench parts {list(parts)}")
+    for name, part in parts.items():
+        missing = set(bench_torch.BENCH_PY_KEYS[name]) - set(part)
+        check(not missing, f"bench part {name} lacks bench.py's keys {missing}")
+        check(bench_torch.finite(part), f"bench part {name} is not finite")
+        check(part["timer"] == "cuda_events", f"bench part {name} timed by {part['timer']}")
+        if name.endswith("_device"):
+            check((part["device_busy_ms"] or 0) > 0, f"bench part {name}: no device busy time")
+    for name in ("tracking_device", "tracking_device_converged"):
+        runs = parts[name]["n_evals"]
+        per_frame = sum(sum(r) for r in runs.values()) / sum(len(r) for r in runs.values())
+        got = parts[name]["blend_launches_per_frame"]
+        check(got == {"blend_fwd": per_frame, "blend_bwd": per_frame},
+              f"bench {name}: {got} launches a frame, {per_frame} evaluations")
+    check(parts["tracking_device_gn"]["blend_launches_per_frame"]
+          == {"blend_fwd": 0, "blend_bwd": 0}, "bench: a GN frame launched a blend kernel")
+    each = {"blend_fwd": WINDOW, "blend_bwd": WINDOW}
+    for name in ("mapping", "mapping_device", "onemillion_device"):
+        check(parts[name]["blend_launches_per_step"] == each,
+              f"bench {name}: {parts[name]['blend_launches_per_step']} launches a step")
+    check(parts["onemillion_device"]["blend_launches_per_render"]
+          == {"blend_fwd": 1, "blend_bwd": 0}, "bench: a 1M render did not launch 1 + 0")
+    check(parts["tracking"]["final_pose_err_m"] < 0.05,
+          f"bench tracking: final error {parts['tracking']['final_pose_err_m']} m")
+    check(headline["value"] == parts["tracking_device_gn"]["device_fps_lower_bound"] > 0,
+          f"bench headline {headline['value']}")
+    check(all(v > 0 for v in launches.values()), f"bench: a kernel was not launched {launches}")
+    return launches
+
+
 BY_SHAPE = ("max_abs_err", "err_over_limit", "ms", "plain_ms", "bound_ms", "bound_by",
             "segments")
 
@@ -2860,6 +2935,7 @@ def main() -> int:
     onemillion_launches, onemillion_shapes = phase_onemillion(smi)
     shapes.update(onemillion_shapes)
     scripts_launches = phase_scripts(smi)
+    bench_launches = phase_bench(smi)
 
     replaces = {"blend_fwd": "gslam_tpu/ops/blend_pallas.py:104",
                 "blend_bwd": "gslam_tpu/ops/blend_pallas.py:136"}
@@ -2869,7 +2945,8 @@ def main() -> int:
     # holds every shape the paths give the kernels
     by_path = {"tracking": launches, "mapping": map_launches, "slam": slam_launches,
                "actor": actor_launches, "sharded": sharded_launches, "cli": cli_launches,
-               "onemillion": onemillion_launches, "scripts": scripts_launches}
+               "onemillion": onemillion_launches, "scripts": scripts_launches,
+               "bench": bench_launches}
     kernels = [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/blend.cu",
                     replaces=replaces[name], launches=sum(p[name] for p in by_path.values()),
                     launches_by_path={k: p[name] for k, p in by_path.items()},

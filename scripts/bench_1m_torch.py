@@ -65,17 +65,18 @@ def intrinsics(width=W, height=H, fx=FX):
     return np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1]], np.float32)
 
 
-def keyframe_pose(slot):
+def keyframe_pose(slot, spacing=KF_SPACING):
     pose = np.eye(4, dtype=np.float32)
-    pose[0, 3] = KF_SPACING * slot
+    pose[0, 3] = spacing * slot
     return pose
 
 
 def build_point(fields, images, width=W, height=H, fx=FX, kf_cap=KF_CAP, window=WINDOW,
-                device=None):
+                kf_spacing=KF_SPACING, render=None, device=None):
     """The point's state on `device`: (gmap, opt_state, kf, pose_opt, widx,
-    wmask, K, cfg), keyframes in slots 0..len(images)-1 with zero exposure,
-    the window of slots 2..window+1."""
+    wmask, K, cfg), keyframes in slots 0..len(images)-1, `kf_spacing` m
+    apart in x, with zero exposure, the window of slots 2..window+1, and
+    `render` (a RenderConfig; by default this point's) in the MapConfig."""
     import torch
 
     from gslam_tpu_torch import resolve_device
@@ -87,12 +88,14 @@ def build_point(fields, images, width=W, height=H, fx=FX, kf_cap=KF_CAP, window=
 
     dev = resolve_device(device)
     gmap = gaussian_map_from_numpy(fields, device=dev)
-    # 4 pairs per splat: a budget of 4M pairs a camera at 1M splats
-    cfg = MapConfig(window_size=window,
-                    render=RenderConfig(tile_capacity=256, tile_chunk=60, pairs_per_gaussian=4))
+    if render is None:
+        # 4 pairs per splat: a budget of 4M pairs a camera at 1M splats
+        render = RenderConfig(tile_capacity=256, tile_chunk=60, pairs_per_gaussian=4)
+    cfg = MapConfig(window_size=window, render=render)
     kf = empty_keyframes(kf_cap, height, width, device=dev)
     for slot, img in enumerate(images):
-        kf = add_keyframe(kf, slot, img, keyframe_pose(slot), np.zeros(2, np.float32), slot)
+        kf = add_keyframe(kf, slot, img, keyframe_pose(slot, kf_spacing),
+                          np.zeros(2, np.float32), slot)
     widx = torch.arange(window, device=dev) + 2
     wmask = torch.ones(window, dtype=torch.bool, device=dev)
     K = torch.from_numpy(intrinsics(width, height, fx)).to(dev)

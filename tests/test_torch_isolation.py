@@ -21,7 +21,8 @@ TOOLS = ("scripts/bench_1m_torch.py", "scripts/study_tracking_torch.py",
          "scripts/make_npz_dataset_torch.py", "scripts/fit_spline_torch.py", "teleop_torch.py")
 SOURCES = sorted((ROOT / "gslam_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "profile_torch_track.py", "bench_blend.py",
-                             "main_torch.py", "pipeline_torch.py", "view_torch.py", *TOOLS)]
+                             "bench_torch.py", "main_torch.py", "pipeline_torch.py",
+                             "view_torch.py", *TOOLS)]
 FORBIDDEN = ("jax", "jaxlib", "gslam_tpu")
 
 
@@ -42,7 +43,7 @@ def test_no_jax_imports(path):
 
 def test_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
-    assert {"chip_smoke.py", "profile_torch_track.py", "bench_blend.py",
+    assert {"chip_smoke.py", "profile_torch_track.py", "bench_blend.py", "bench_torch.py",
             "gslam_tpu_torch/ops/blend.py", "gslam_tpu_torch/tracking/track.py",
             "gslam_tpu_torch/mapping/backend_ops.py", "gslam_tpu_torch/ops/ssim.py",
             "gslam_tpu_torch/runtime/fused.py", "gslam_tpu_torch/runtime/checkpoint.py",
@@ -117,8 +118,11 @@ def test_cli_refuses_cpu_without_a_device(monkeypatch, tmp_path):
 
 
 def test_tools_refuse_cpu_without_a_device(monkeypatch, tmp_path):
-    """Each ported tool that computes with torch, given no --device on a
-    host without CUDA, raises before it builds or writes anything."""
+    """Each ported tool that computes with torch, and bench_torch.py (whole
+    and one section), given no --device on a host without CUDA, raises before
+    it builds or writes anything."""
+    import bench_torch
+
     sys.path.insert(0, str(ROOT / "scripts"))
     try:
         import bench_1m_torch
@@ -133,6 +137,8 @@ def test_tools_refuse_cpu_without_a_device(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     calls = [
+        (bench_torch, []),
+        (bench_torch, ["--section", "mapping"]),
         (bench_1m_torch, []),
         (study_tracking_torch, ["oracle", "--frames", "2", "--width", "16", "--height", "16",
                                 "--n-splats", "10"]),

@@ -38,13 +38,13 @@ import teleop  # noqa: E402
 import teleop_torch  # noqa: E402
 
 
-def _load_jax_script(name):
-    """scripts/<name>.py (a JAX script) as a module. Those scripts put a
-    fixed absolute path at the head of sys.path when imported, so sys.path
-    is restored around the import: every later import in this process
-    resolves from this checkout."""
+def _load_jax_script(name, directory=SCRIPTS):
+    """<directory>/<name>.py (a JAX script; scripts/ by default) as a module.
+    Those scripts put a fixed absolute path at the head of sys.path when
+    imported, so sys.path is restored around the import: every later import
+    in this process resolves from this checkout."""
     saved = list(sys.path)
-    spec = importlib.util.spec_from_file_location(f"jax_script_{name}", SCRIPTS / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"jax_script_{name}", directory / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     try:
         spec.loader.exec_module(module)
