@@ -185,7 +185,7 @@ def device_profile(fn, dev, per_name):
         per = fn()
         torch.cuda.synchronize(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    s = trace_summary(prof, (), wall_ms, per, per_name)
+    s = trace_summary(prof, wall_ms, per, per_name)
     top = dict(list(s["device_ms_by_kernel"].items())[:TOP_KERNELS])
     return dict(zip(keys, (s["device_busy_ms"], s["device_idle_share"], wall_ms,
                            s[f"launches_per_{per_name}"], top)))

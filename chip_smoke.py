@@ -2039,7 +2039,7 @@ def phase_actor(smi):
     # render closing each optimize_map, and each run_pruning), per
     # keyframe-decision camera (2 a frame after the first) and per eval view
     window = cfg.mapping.window_size
-    view_stats = be.phase_n.get("map", 0) + be.phase_n.get("prune", 0)
+    view_stats = m["phase_calls"].get("map", 0) + m["phase_calls"].get("prune", 0)
     n_eval_views = len(range(0, m["L"], cfg.eval_stride))
     grads = n_track + window * (be.total_step + n_refine)
     want = {"blend_fwd": grads + view_stats + 2 * (m["L"] - 1) + n_eval_views,

@@ -19,6 +19,11 @@ Counterpart of gslam_tpu/mapping/backend_ops.py:
 The window has `window_size` slots and a mask: padded slots read keyframe
 slot 0 and their writes are dropped. Every program runs on the device of
 the map it is given.
+
+Spans of a mapping step (runtime/trace.py): `map.step`, holding
+`map.render` (projection, binning, gather and blend), `map.loss` (the loss
+terms and SSIM), `map.backward` (autograd.grad) and `map.adam` (the masked
+Adam step, the pose Adam and the opacity decay).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from gslam_tpu_torch.ops.losses import (
 from gslam_tpu_torch.ops.rasterize import RenderConfig, RenderOutput, render_impl
 from gslam_tpu_torch.ops.ssim import ssim_per_image
 from gslam_tpu_torch.opt.lbfgs import lbfgs_impl
+from gslam_tpu_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,33 +149,35 @@ def _window_loss(
     height: int,
     cfg: MapConfig,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, RenderOutput]]:
-    g = gmap.with_trainable(gmap_trainable)
-    viewmats = pose_matrix(PoseDelta(pose_base, pose_vec[:, :6], pose_vec[:, 6:9]))
-    out = render_impl(
-        **g.render_kwargs(), viewmats=viewmats, Ks=Ks, width=width, height=height,
-        bg_rgb=_background(cfg, pose_vec.device), cfg=cfg.render, probe2d=probe,
-    )
-    rendered = apply_exposure(out.rgb, exposures)
-    photo = mapping_photometric(rendered, gt_imgs, out.beta, active_gs=cfg.active_gs,
-                                cam_mask=cam_mask)
+    with trace.span("map.render"):
+        g = gmap.with_trainable(gmap_trainable)
+        viewmats = pose_matrix(PoseDelta(pose_base, pose_vec[:, :6], pose_vec[:, 6:9]))
+        out = render_impl(
+            **g.render_kwargs(), viewmats=viewmats, Ks=Ks, width=width, height=height,
+            bg_rgb=_background(cfg, pose_vec.device), cfg=cfg.render, probe2d=probe,
+        )
+    with trace.span("map.loss"):
+        rendered = apply_exposure(out.rgb, exposures)
+        photo = mapping_photometric(rendered, gt_imgs, out.beta, active_gs=cfg.active_gs,
+                                    cam_mask=cam_mask)
 
-    radii_m = torch.where(cam_mask[:, None], out.radii, 0.0)
-    visible = torch.sum((radii_m > 0).to(torch.int32), dim=0) > 0
-    iso = isotropic_scale_loss(g.log_scales, visible & g.alive)
+        radii_m = torch.where(cam_mask[:, None], out.radii, 0.0)
+        visible = torch.sum((radii_m > 0).to(torch.int32), dim=0) > 0
+        iso = isotropic_scale_loss(g.log_scales, visible & g.alive)
 
-    ssim_vals = ssim_per_image(out.rgb, gt_imgs)
-    w = cam_mask.to(torch.float32)
-    ssim_loss = 1.0 - torch.sum(ssim_vals * w) / torch.clamp(torch.sum(w), min=1.0)
+        ssim_vals = ssim_per_image(out.rgb, gt_imgs)
+        w = cam_mask.to(torch.float32)
+        ssim_loss = 1.0 - torch.sum(ssim_vals * w) / torch.clamp(torch.sum(w), min=1.0)
 
-    total = ((1.0 - cfg.ssim_weight) * photo + cfg.ssim_weight * ssim_loss
-             + cfg.isotropic_weight * iso)
-    if not cfg.use_gt_depths:
-        tv = edge_aware_depth_tv(out.depth, out.rgb,
-                                 (out.alpha > 0.4) & cam_mask[:, None, None])
-        total = total + cfg.depth_tv_weight * tv
-    else:
-        total = total + cfg.depth_loss_weight * masked_depth_l1(out.depth, gt_depths,
-                                                                cam_mask)
+        total = ((1.0 - cfg.ssim_weight) * photo + cfg.ssim_weight * ssim_loss
+                 + cfg.isotropic_weight * iso)
+        if not cfg.use_gt_depths:
+            tv = edge_aware_depth_tv(out.depth, out.rgb,
+                                     (out.alpha > 0.4) & cam_mask[:, None, None])
+            total = total + cfg.depth_tv_weight * tv
+        else:
+            total = total + cfg.depth_loss_weight * masked_depth_l1(out.depth, gt_depths,
+                                                                    cam_mask)
     return total, (photo, out)
 
 
@@ -200,7 +208,8 @@ def window_grads(gmap: GaussianMap, kf: KeyframeStore, window_idx: torch.Tensor,
         kf.gt_depths[safe_idx], kf.exposures[safe_idx], window_mask,
         K[None].expand(Wn, 3, 3), width, height, cfg)
     inputs = [*params.values(), pose_vec, probe]
-    grads = torch.autograd.grad(total, inputs, allow_unused=True)
+    with trace.span("map.backward"):
+        grads = torch.autograd.grad(total, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
     return WindowGrads(
         total_loss=total.detach(), photometric_loss=photo.detach(),
@@ -248,35 +257,36 @@ def mapping_step(
 ):
     """One mapping iteration on the map's device. Returns (gmap, opt_state,
     kf, pose_opt, aux) as new tensors; the inputs are left as they were."""
-    wg = window_grads(gmap, kf, window_idx, window_mask, K, width, height, cfg)
-    with torch.no_grad():
-        gmap, opt_state = adam_step(gmap, wg.g_map, opt_state)
+    with trace.span("map.step"):
+        wg = window_grads(gmap, kf, window_idx, window_mask, K, width, height, cfg)
+        with torch.no_grad(), trace.span("map.adam"):
+            gmap, opt_state = adam_step(gmap, wg.g_map, opt_state)
 
-        # pose Adam on the window; the very first keyframe stays fixed
-        safe_idx = torch.where(window_mask, window_idx, 0).to(torch.int64)
-        upd_mask = window_mask & (kf.frame_idx[safe_idx] != 0)
-        new_vec, mu, nu, count = _pose_adam(pose_opt, wg.pose_vec, wg.g_pose,
-                                            safe_idx, upd_mask, cfg.pose_lr)
-        kf = kf._replace(
-            d_rot6=_set_rows(kf.d_rot6, window_idx, window_mask, new_vec[:, :6]),
-            d_t=_set_rows(kf.d_t, window_idx, window_mask, new_vec[:, 6:9]),
-            est_depths=_set_rows(kf.est_depths, window_idx, window_mask, wg.out.depth),
+            # pose Adam on the window; the very first keyframe stays fixed
+            safe_idx = torch.where(window_mask, window_idx, 0).to(torch.int64)
+            upd_mask = window_mask & (kf.frame_idx[safe_idx] != 0)
+            new_vec, mu, nu, count = _pose_adam(pose_opt, wg.pose_vec, wg.g_pose,
+                                                safe_idx, upd_mask, cfg.pose_lr)
+            kf = kf._replace(
+                d_rot6=_set_rows(kf.d_rot6, window_idx, window_mask, new_vec[:, :6]),
+                d_t=_set_rows(kf.d_t, window_idx, window_mask, new_vec[:, 6:9]),
+                est_depths=_set_rows(kf.est_depths, window_idx, window_mask, wg.out.depth),
+            )
+            pose_opt = PoseAdamState(*(_set_rows(x, window_idx, upd_mask, v)
+                                       for x, v in zip(pose_opt, (mu, nu, count))))
+
+            # per-iteration opacity decay of splats seen by more than one window
+            # view; padded cameras re-render slot 0's pose, so they are masked out
+            radii_m = torch.where(window_mask[:, None], wg.out.radii, 0.0)
+            n_touched_m = torch.where(window_mask[:, None], wg.out.n_touched, 0)
+            gmap = opacity_decay(gmap, radii_m, cfg.opacity_decay)
+
+        aux = MappingAux(
+            total_loss=wg.total_loss, photometric_loss=wg.photometric_loss,
+            radii=radii_m, n_touched=n_touched_m, depthmaps=wg.out.depth,
+            means2d_grad=wg.g_probe, n_pairs=wg.out.n_pairs,
         )
-        pose_opt = PoseAdamState(*(_set_rows(x, window_idx, upd_mask, v)
-                                   for x, v in zip(pose_opt, (mu, nu, count))))
-
-        # per-iteration opacity decay of splats seen by more than one window
-        # view; padded cameras re-render slot 0's pose, so they are masked out
-        radii_m = torch.where(window_mask[:, None], wg.out.radii, 0.0)
-        n_touched_m = torch.where(window_mask[:, None], wg.out.n_touched, 0)
-        gmap = opacity_decay(gmap, radii_m, cfg.opacity_decay)
-
-    aux = MappingAux(
-        total_loss=wg.total_loss, photometric_loss=wg.photometric_loss,
-        radii=radii_m, n_touched=n_touched_m, depthmaps=wg.out.depth,
-        means2d_grad=wg.g_probe, n_pairs=wg.out.n_pairs,
-    )
-    return gmap, opt_state, kf, pose_opt, aux
+        return gmap, opt_state, kf, pose_opt, aux
 
 
 def pose_refinement_lbfgs(

@@ -11,6 +11,12 @@ Counterpart of gslam_tpu/ops/binning.py, with the same static semantics:
      `tile << 32 | ordered_bits(depth)` and a stable sort (torch has no
      multi-key sort);
   4. each tile keeps its first `capacity` (nearest) splats.
+
+While a profiler records (runtime/trace.py), four counters say what the
+truncations drop, on the device: `pairs.wanted` (pairs requested),
+`pairs.over_budget` (beyond `max_pairs`), `pairs.over_capacity` (beyond a
+tile's `capacity`) and `tiles.over_capacity` (tiles holding more pairs than
+`capacity`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from gslam_tpu_torch.runtime import trace
 
 
 class TileBins(NamedTuple):
@@ -71,7 +79,8 @@ def bin_gaussians(
 
     counts = torch.where(valid, span_x * span_y, 0).to(torch.int64)
     offsets = torch.cumsum(counts, 0) - counts  # exclusive
-    n_pairs = torch.sum(counts).to(torch.int32)
+    wanted = torch.sum(counts)
+    n_pairs = wanted.to(torch.int32)
 
     # a fixed local grid per splat, as wide as a footprint can be: max_span,
     # or the image's tile count where that is smaller (span_x <= tiles_x);
@@ -106,6 +115,13 @@ def bin_gaussians(
     starts = torch.searchsorted(sorted_tile, tile_range, side="left")
     ends = torch.searchsorted(sorted_tile, tile_range, side="right")
     tile_counts = ends - starts
+
+    if trace.enabled():
+        over = torch.clamp(tile_counts - capacity, min=0)
+        trace.count("pairs.wanted", wanted)
+        trace.count("pairs.over_budget", torch.clamp(wanted - max_pairs, min=0))
+        trace.count("pairs.over_capacity", torch.sum(over))
+        trace.count("tiles.over_capacity", torch.sum(over > 0))
 
     slot = torch.arange(capacity, device=dev)[None, :]
     tile_mask = slot < tile_counts[:, None]

@@ -35,6 +35,7 @@ from gslam_tpu_torch import resolve_device, to_device
 from gslam_tpu_torch.ops.binning import bin_gaussians
 from gslam_tpu_torch.ops.blend import blend_fwd_plain, blend_tiles_rows
 from gslam_tpu_torch.ops.projection import ProjectionOutput, project_gaussians
+from gslam_tpu_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,19 +95,21 @@ def _bin_cameras(means2d, radii, depths, valid, width, height, cfg: RenderConfig
                  ) -> CameraBins:
     """Tile lists of each camera ([C, N] inputs), one camera at a time: the
     binning's pair grid (N by up to max_span^2) is the largest tensor of a
-    render, and C of them at once would not pay for the launches they save."""
-    n = means2d.shape[1]
-    ts = cfg.tile_size
-    out = [bin_gaussians(means2d[c], radii[c], depths[c], valid[c], ts,
-                         -(-width // ts), -(-height // ts),
-                         int(cfg.pairs_per_gaussian * n), cfg.tile_capacity,
-                         cfg.max_span)
-           for c in range(means2d.shape[0])]
-    return CameraBins(
-        tile_gauss=torch.stack([b.tile_gauss for b in out]),
-        tile_mask=torch.stack([b.tile_mask for b in out]),
-        n_pairs=torch.stack([b.n_pairs for b in out]),
-    )
+    render, and C of them at once would not pay for the launches they save.
+    The span `binning` marks it on the profiler's timeline."""
+    with trace.span("binning"):
+        n = means2d.shape[1]
+        ts = cfg.tile_size
+        out = [bin_gaussians(means2d[c], radii[c], depths[c], valid[c], ts,
+                             -(-width // ts), -(-height // ts),
+                             int(cfg.pairs_per_gaussian * n), cfg.tile_capacity,
+                             cfg.max_span)
+               for c in range(means2d.shape[0])]
+        return CameraBins(
+            tile_gauss=torch.stack([b.tile_gauss for b in out]),
+            tile_mask=torch.stack([b.tile_mask for b in out]),
+            n_pairs=torch.stack([b.n_pairs for b in out]),
+        )
 
 
 @torch.no_grad()

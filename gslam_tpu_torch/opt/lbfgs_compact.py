@@ -13,6 +13,11 @@ read back to the host once per evaluation. The state is a few vectors of
 the problem's size, kept in float32 on x0's device; a caller whose loss
 runs on the card can keep x0 on the CPU so that the branch logic costs no
 kernel launches (the gradient comes back to x0's device through autograd).
+
+Spans (runtime/trace.py): `track.optimizer` around the whole loop, and per
+evaluation `track.eval` holding the loss function's own spans, then
+`track.backward` (autograd.grad) and `track.readback` (the loss to x0's
+device); the counter `track.evals` adds one an evaluation.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from gslam_tpu_torch.runtime import trace
 
 WARMUP, INIT, TRIAL, ZOOM, DONE = 0, 1, 2, 3, 4
 
@@ -114,10 +121,14 @@ def warmup_lbfgs_impl(
     c = _State(x0, history, warmup_steps)
 
     def fg(p):
-        p = p.detach().requires_grad_(True)
-        f = loss_fn(p)
-        (g,) = torch.autograd.grad(f, p)
-        return f.detach().to(device=p.device, dtype=torch.float32), g.detach()
+        with trace.span("track.eval"):
+            trace.count("track.evals")
+            p = p.detach().requires_grad_(True)
+            f = loss_fn(p)
+            with trace.span("track.backward"):
+                (g,) = torch.autograd.grad(f, p)
+            with trace.span("track.readback"):
+                return f.detach().to(device=p.device, dtype=torch.float32), g.detach()
 
     def start_search(x_new, f_new, g_new):
         """Accept x_new as the new iterate and set up the next line search."""
@@ -209,21 +220,22 @@ def warmup_lbfgs_impl(
         else:
             c.t, c.insuf = t_new, close
 
-    while c.mode != DONE and c.n_evals < budget:
-        p = c.x if c.mode in (WARMUP, INIT) else c.x + c.t * c.d
-        f, g = fg(p)
-        dd = torch.dot(g, c.d)
-        c.n_evals += 1
-        if c.mode == WARMUP:
-            do_warmup(g)
-        elif c.mode == INIT:
-            c.mode, c.f, c.g = INIT, f, g
-            start_search(c.x, f, g)
-        elif c.mode == TRIAL:
-            do_trial(f, g, dd)
-        else:
-            do_zoom(f, g, dd)
-    return c.x, c.f, c.n_evals
+    with trace.span("track.optimizer"):
+        while c.mode != DONE and c.n_evals < budget:
+            p = c.x if c.mode in (WARMUP, INIT) else c.x + c.t * c.d
+            f, g = fg(p)
+            dd = torch.dot(g, c.d)
+            c.n_evals += 1
+            if c.mode == WARMUP:
+                do_warmup(g)
+            elif c.mode == INIT:
+                c.mode, c.f, c.g = INIT, f, g
+                start_search(c.x, f, g)
+            elif c.mode == TRIAL:
+                do_trial(f, g, dd)
+            else:
+                do_zoom(f, g, dd)
+        return c.x, c.f, c.n_evals
 
 
 # The JAX package's public entry point is warmup_lbfgs_impl under jit; an

@@ -28,8 +28,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import random as py_random
-import time
-from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -48,6 +46,7 @@ from gslam_tpu_torch.mapping.insertion import (
 from gslam_tpu_torch.mapping.keyframes import add_keyframe, empty_keyframes
 from gslam_tpu_torch.mapping.optimizer import init_adam
 from gslam_tpu_torch.runtime.fused import KeyDraws
+from gslam_tpu_torch.runtime import trace
 from gslam_tpu_torch.runtime.messages import SyncPayload
 
 logger = logging.getLogger("gslam_tpu_torch.backend")
@@ -140,20 +139,9 @@ class BackendActor:
         # saturated mapping iterations
         self.max_pairs_seen = 0
         self.n_pair_overflows = 0
-        # per-phase wall time, seconds (map/insert/prune/pose_refine/sync),
-        # and the pose refinement's evaluations
-        self.phase_s: dict[str, float] = {}
-        self.phase_n: dict[str, int] = {}
+        # the pose refinement's evaluations; each phase's host time is the
+        # recorder's span backend.<phase> (map/insert/prune/pose_refine/sync)
         self.refine_evals: list[int] = []
-
-    @contextmanager
-    def _timed(self, phase: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.phase_s[phase] = self.phase_s.get(phase, 0.0) + time.time() - t0
-            self.phase_n[phase] = self.phase_n.get(phase, 0) + 1
 
     def _split(self, n: int) -> list[torch.Tensor]:
         """Advance the key; returns n - 1 fresh keys (JAX: key, *ks = split(key, n))."""
@@ -202,7 +190,7 @@ class BackendActor:
     def optimize_map(self, n_iters=None, prune=True, regularize=True):
         if not self.kf_order:
             return
-        with self._timed("map"):
+        with trace.span("backend.map"):
             self._optimize_map(n_iters, prune, regularize)
 
     def _optimize_map(self, n_iters, prune, regularize):
@@ -265,7 +253,7 @@ class BackendActor:
         """Prune on a fresh render of the last keyframe."""
         if not self.kf_order:
             return
-        with self._timed("prune"):
+        with trace.span("backend.prune"):
             self._run_pruning()
 
     def _run_pruning(self):
@@ -282,7 +270,7 @@ class BackendActor:
     def refine_poses(self):
         if len(self.kf_order) < 2:
             return
-        with self._timed("pose_refine"):
+        with trace.span("backend.pose_refine"):
             widx, wmask = self._window()
             self.kf, _, n_evals = pose_refinement_lbfgs(
                 self.gmap, self.kf, widx, wmask, self.K, self.width, self.height, self.cfg)
@@ -324,7 +312,7 @@ class BackendActor:
     def _insert(self, key, depth, alpha, image, pose, n_new, frame, **occlusion):
         gt_depth = self._gt_depth(frame)
         need = insertion_masks(depth, alpha, self.insertion_cfg, gt_depth)[1]
-        with self._timed("insert"):
+        with trace.span("backend.insert"):
             res = insert_from_depthmap(
                 self.draws.insertion(key, need, n_new), self.gmap, self.opt_state, depth,
                 alpha, image, self.K, pose, n_new, frame.index, self.insertion_cfg,
@@ -433,7 +421,7 @@ class BackendActor:
     def sync_payload(self) -> SyncPayload:
         # the snapshot owns its memory: nothing the backend does later may
         # show through it
-        with self._timed("sync"):
+        with trace.span("backend.sync"):
             snapshot = GaussianMap(*(x.clone() for x in self.gmap))
         poses = self.kf.poses().cpu().numpy()
         return SyncPayload(

@@ -87,7 +87,7 @@ class FrontendActor:
             return frame
 
         dev = self.device
-        t0 = time.time()
+        t0 = time.perf_counter()
         prior = self.predict_pose()
         init_exposure = to_device(self.frames[-1].exposure, dev)
         gt_depth = (frame.gt_depth if (self.cfg.use_gt_depths and frame.gt_depth is not None)
@@ -148,7 +148,7 @@ class FrontendActor:
                 logger.warning("frame %d: tracking guard rejected the refined pose "
                                "(falling back to the motion prior); health=%d",
                                frame.index, self.health)
-        dt = time.time() - t0
+        dt = time.perf_counter() - t0
         self.track_times.append(dt)
         self.losses.append(final_loss)
         self._log_frame(frame, final_loss, dt)

@@ -8,7 +8,8 @@ backend with the actor message protocol, in two modes:
     and a backend thread that optimizes while idle, with queue-based
     messages. Both threads use one device and its default stream.
 `finalize` scores the run: ATE against the ground truth, PSNR/SSIM of
-re-rendered frames, per-phase wall times, the divergence counters; with a
+re-rendered frames, per-phase host times (the recorder's backend.* spans,
+runtime/trace.py), the divergence counters; with a
 run directory it writes `metrics.json`, `splats.npz`, `traj.png` and
 `trajectory.npy`, the estimated world-to-camera poses as [N, 4, 4] (the
 fused runtime's format).
@@ -29,6 +30,7 @@ import torch
 
 from gslam_tpu_torch import resolve_device, to_device
 from gslam_tpu_torch.mapping.backend_ops import MapConfig
+from gslam_tpu_torch.runtime import trace
 from gslam_tpu_torch.runtime.backend import BackendActor
 from gslam_tpu_torch.runtime.checkpoint import save_checkpoint, save_map
 from gslam_tpu_torch.runtime.frontend import FrontendActor
@@ -37,6 +39,14 @@ from gslam_tpu_torch.tracking.track import TrackingConfig
 from gslam_tpu_torch.viz.visualization import make_sink
 
 logger = logging.getLogger("gslam_tpu_torch.system")
+
+PHASE = "backend."  # the backend's phase spans: backend.map, backend.insert, ...
+
+
+def _phase_spans() -> dict:
+    """The recorder's aggregates of the backend's phase spans, by phase."""
+    return {k[len(PHASE):]: v for k, v in trace.snapshot()["spans"].items()
+            if k.startswith(PHASE)}
 
 
 @dataclasses.dataclass
@@ -75,6 +85,7 @@ class SlamSystem:
         self.width, self.height = width, height
         self.n_keyframes_added = 0
         self.start_index = 0  # set by checkpoint.restore_system on resume
+        self._phases0 = _phase_spans()  # finalize reports the phases run since
 
     # ------------- synchronous pipeline -------------
 
@@ -240,11 +251,15 @@ class SlamSystem:
             metrics["mean_refine_evals"] = float(np.mean(be.refine_evals))
         metrics["max_pairs_seen"] = be.max_pairs_seen
         metrics["n_pair_overflows"] = be.n_pair_overflows
-        # per-phase wall-time split from the backend's _timed instrumentation
-        metrics["phase_ms"] = {k: round(1e3 * be.phase_s[k] / max(be.phase_n[k], 1), 2)
-                               for k in sorted(be.phase_s)}
-        metrics["phase_total_s"] = {k: round(be.phase_s[k], 2) for k in sorted(be.phase_s)}
-        metrics["phase_calls"] = dict(sorted(be.phase_n.items()))
+        # per-phase host time: the backend's spans since this system was made
+        phases = {}
+        for k, v in sorted(_phase_spans().items()):
+            v0 = self._phases0.get(k, {"calls": 0, "total_s": 0.0})
+            if v["calls"] > v0["calls"]:
+                phases[k] = (v["calls"] - v0["calls"], v["total_s"] - v0["total_s"])
+        metrics["phase_ms"] = {k: round(1e3 * s / n, 2) for k, (n, s) in phases.items()}
+        metrics["phase_total_s"] = {k: round(s, 2) for k, (n, s) in phases.items()}
+        metrics["phase_calls"] = {k: n for k, (n, s) in phases.items()}
 
         gt_t, est_t = fe.trajectory()
         if len(gt_t) >= 2:

@@ -19,6 +19,15 @@ rotation + translation) and the affine exposure pair are packed into one
     render_impl's forward-mode route, as the JAX tracker pins its jnp blend),
     solves the p x p damped normal system and renders once more to score the
     step.
+
+Spans (runtime/trace.py): `track.frame` (track_frame), `track.level` (one
+level of either method), `track.bins` (binning and gathering at the prior),
+`track.optimizer` (warmup_lbfgs_impl, levenberg_marquardt), `track.eval`
+(one evaluation: `track.render`, `track.loss`, and for igs `track.backward`
+and `track.readback`), and for GN `track.linearize` (normal_equations),
+`track.solve` and `track.readback`. The counter `track.evals` adds one an
+evaluation: TrackResult.n_evals summed (GN: each linearization and each
+scoring render).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from gslam_tpu_torch.ops.track_fused import (
     gather_tracking_tiles, render_tracking_fused,
 )
 from gslam_tpu_torch.opt.lbfgs_compact import warmup_lbfgs_impl
+from gslam_tpu_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,69 +119,74 @@ def track_frame_impl(
     gt_depth: torch.Tensor | None = None,  # [H, W] for RGB-D mode
 ) -> TrackResult:
     """One level of refinement; all tensors lie on the map's device."""
-    # bin tiles ONCE at the prior pose with inflated footprints and gather
-    # the pose-independent rows; each evaluation then only projects per
-    # (tile, slot) and blends
-    bins = compute_bins(
-        gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
-        base_pose[None], K[None], width, height, cfg.render,
-        radius_scale=cfg.bin_radius_margin,
-    )
-    if cfg.fused:
-        tiles = gather_tracking_tiles(gmap, bins)
-    dev = gmap.means.device
-
-    def unpack(x):
-        pose = pose_matrix(PoseDelta(base_pose, x[:6], x[6:9]))
-        exposure = x[9:11] if cfg.learn_exposure else init_exposure
-        return pose, exposure
-
-    def loss_fn(x_host):
-        pose, exposure = unpack(x_host.to(dev))
-        if cfg.fused:
-            rgb_img, depth_img, beta_img, alpha_img = render_tracking_fused(
-                tiles, pose, K, width, height, cfg.render)
-        else:
-            out = render_impl(**gmap.render_kwargs(), viewmats=pose[None], Ks=K[None],
-                              width=width, height=height, cfg=cfg.render, bins=bins)
-            rgb_img, depth_img, beta_img, alpha_img = (
-                out.rgb[0], out.depth[0], out.beta[0], out.alpha[0])
-        rgb = apply_exposure(rgb_img, exposure)
-        loss = tracking_photometric(rgb, gt_img, beta_img, cfg.photometric_loss)
-        if cfg.use_gt_depths and gt_depth is not None:
-            # alpha-normalized expected depth, differentiable through both
-            d_hat = depth_img / torch.clamp(alpha_img, min=1e-3)
-            loss = loss + cfg.depth_loss_weight * masked_depth_l1(
-                d_hat[None], gt_depth[None],
-                alpha=alpha_img[None], alpha_min=cfg.depth_alpha_min,
+    with trace.span("track.level"):
+        # bin tiles ONCE at the prior pose with inflated footprints and
+        # gather the pose-independent rows; each evaluation then only
+        # projects per (tile, slot) and blends
+        with trace.span("track.bins"):
+            bins = compute_bins(
+                gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
+                base_pose[None], K[None], width, height, cfg.render,
+                radius_scale=cfg.bin_radius_margin,
             )
-        return loss
+            if cfg.fused:
+                tiles = gather_tracking_tiles(gmap, bins)
+        dev = gmap.means.device
 
-    # the optimizer's 11-vector lives on the host; every evaluation's render
-    # and gradient run on the map's device
-    x0 = torch.cat([torch.zeros(9), init_exposure.detach().cpu().to(torch.float32)])
-    x, f, n_evals = warmup_lbfgs_impl(
-        loss_fn, x0,
-        warmup_steps=cfg.warmup_steps,
-        max_iter=cfg.lbfgs_max_iter,
-        max_eval=cfg.lbfgs_max_eval,
-        history=cfg.lbfgs_history,
-        lr=cfg.pose_lr,
-        warmup_lr=cfg.pose_lr,
-    )
-    # divergence guard: keep the motion prior when the refinement left the
-    # photometric basin
-    ok = (
-        bool(torch.all(torch.isfinite(x)))
-        and bool(torch.isfinite(f))
-        and bool(torch.linalg.norm(x[6:9]) < cfg.max_step)
-    )
-    if not ok:
-        x, f = x0, torch.tensor(1e3)  # finite sentinel far above real losses
-    with torch.no_grad():
-        pose, exposure = unpack(x.to(dev))
-    return TrackResult(pose=pose, exposure=exposure, loss=f.to(dev),
-                       n_evals=n_evals, rejected=not ok)
+        def unpack(x):
+            pose = pose_matrix(PoseDelta(base_pose, x[:6], x[6:9]))
+            exposure = x[9:11] if cfg.learn_exposure else init_exposure
+            return pose, exposure
+
+        def loss_fn(x_host):
+            with trace.span("track.render"):
+                pose, exposure = unpack(x_host.to(dev))
+                if cfg.fused:
+                    rgb_img, depth_img, beta_img, alpha_img = render_tracking_fused(
+                        tiles, pose, K, width, height, cfg.render)
+                else:
+                    out = render_impl(**gmap.render_kwargs(), viewmats=pose[None],
+                                      Ks=K[None], width=width, height=height,
+                                      cfg=cfg.render, bins=bins)
+                    rgb_img, depth_img, beta_img, alpha_img = (
+                        out.rgb[0], out.depth[0], out.beta[0], out.alpha[0])
+            with trace.span("track.loss"):
+                rgb = apply_exposure(rgb_img, exposure)
+                loss = tracking_photometric(rgb, gt_img, beta_img, cfg.photometric_loss)
+                if cfg.use_gt_depths and gt_depth is not None:
+                    # alpha-normalized expected depth, differentiable through both
+                    d_hat = depth_img / torch.clamp(alpha_img, min=1e-3)
+                    loss = loss + cfg.depth_loss_weight * masked_depth_l1(
+                        d_hat[None], gt_depth[None],
+                        alpha=alpha_img[None], alpha_min=cfg.depth_alpha_min,
+                    )
+            return loss
+
+        # the optimizer's 11-vector lives on the host; every evaluation's
+        # render and gradient run on the map's device
+        x0 = torch.cat([torch.zeros(9), init_exposure.detach().cpu().to(torch.float32)])
+        x, f, n_evals = warmup_lbfgs_impl(
+            loss_fn, x0,
+            warmup_steps=cfg.warmup_steps,
+            max_iter=cfg.lbfgs_max_iter,
+            max_eval=cfg.lbfgs_max_eval,
+            history=cfg.lbfgs_history,
+            lr=cfg.pose_lr,
+            warmup_lr=cfg.pose_lr,
+        )
+        # divergence guard: keep the motion prior when the refinement left
+        # the photometric basin
+        ok = (
+            bool(torch.all(torch.isfinite(x)))
+            and bool(torch.isfinite(f))
+            and bool(torch.linalg.norm(x[6:9]) < cfg.max_step)
+        )
+        if not ok:
+            x, f = x0, torch.tensor(1e3)  # finite sentinel far above real losses
+        with torch.no_grad():
+            pose, exposure = unpack(x.to(dev))
+        return TrackResult(pose=pose, exposure=exposure, loss=f.to(dev),
+                           n_evals=n_evals, rejected=not ok)
 
 
 class GaussNewtonProblem:
@@ -196,11 +211,12 @@ class GaussNewtonProblem:
         self.p = 11 if cfg.learn_exposure else 9
         self.use_depth = cfg.use_gt_depths and gt_depth is not None
         self.gt_depth = gt_depth.reshape(-1) if self.use_depth else None
-        self.bins = compute_bins(
-            gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
-            base_pose[None], K[None], width, height, cfg.render,
-            radius_scale=cfg.bin_radius_margin,
-        )
+        with trace.span("track.bins"):
+            self.bins = compute_bins(
+                gmap.means, gmap.quats, gmap.log_scales, gmap.alive,
+                base_pose[None], K[None], width, height, cfg.render,
+                radius_scale=cfg.bin_radius_margin,
+            )
 
     def x0(self) -> torch.Tensor:
         """The starting vector, p long (the JAX tracker's is 11 long even
@@ -256,17 +272,20 @@ class GaussNewtonProblem:
     def normal_equations(self, x):
         """JtJ [p, p] and Jtr [p] of the weighted residual at x: one
         linearization, the primal render once and p tangent passes."""
-        def linearize(t):
-            return torch.func.jvp(self.residuals, (x,), (t,))
+        with trace.span("track.linearize"):
+            trace.count("track.evals")
 
-        eye = torch.eye(self.p, device=x.device)
-        (err, derr, beta, alpha), (Je, Jd, _, _) = torch.func.vmap(
-            linearize, out_dims=(None, 0))(eye)
-        w_rgb, w_d = self.weights(derr, beta, alpha)
-        w3 = torch.repeat_interleave(w_rgb, 3)  # channel-interleaved, as err
-        r = torch.cat([err * w3, derr * w_d])
-        J = torch.cat([Je * w3, Jd * w_d], dim=1)  # [p, HW*3 + HW]
-        return J @ J.T, J @ r
+            def linearize(t):
+                return torch.func.jvp(self.residuals, (x,), (t,))
+
+            eye = torch.eye(self.p, device=x.device)
+            (err, derr, beta, alpha), (Je, Jd, _, _) = torch.func.vmap(
+                linearize, out_dims=(None, 0))(eye)
+            w_rgb, w_d = self.weights(derr, beta, alpha)
+            w3 = torch.repeat_interleave(w_rgb, 3)  # channel-interleaved, as err
+            r = torch.cat([err * w3, derr * w_d])
+            J = torch.cat([Je * w3, Jd * w_d], dim=1)  # [p, HW*3 + HW]
+            return J @ J.T, J @ r
 
 
 def levenberg_marquardt(prob: GaussNewtonProblem, cfg: TrackingConfig):
@@ -279,28 +298,39 @@ def levenberg_marquardt(prob: GaussNewtonProblem, cfg: TrackingConfig):
 
     Returns (x, f, n_evals, steps): n_evals counts render passes (1 + 2 per
     iteration); steps holds each iteration's (accepted, loss after it)."""
-    x = prob.x0()
-    f = prob.loss(*prob.residuals(x))
-    lam = torch.tensor(cfg.gn_lambda0, device=x.device)
-    eye = torch.eye(prob.p, device=x.device)
-    n_evals, steps = 1, []
-    for _ in range(cfg.gn_iters):
-        JtJ, Jtr = prob.normal_equations(x)
-        A = JtJ + lam * torch.diag(torch.diagonal(JtJ)) + 1e-8 * eye
-        delta = -torch.linalg.solve_ex(A, Jtr).result
-        x_new = x + delta
-        f_new = prob.loss(*prob.residuals(x_new))
-        better = torch.isfinite(f_new) & (f_new < f)
-        x = torch.where(better, x_new, x)
-        f = torch.where(better, f_new, f)
-        lam = torch.where(better, lam * 0.33, lam * 10.0)
-        done = (better & (torch.linalg.norm(delta) < cfg.gn_tol)) | (lam > 1e7)
-        n_evals += 2
-        better, done, loss = torch.stack([better, done, f]).tolist()
-        steps.append((bool(better), loss))
-        if done:
-            break
-    return x, f, n_evals, steps
+    def score(x):
+        with trace.span("track.eval"):
+            trace.count("track.evals")
+            with trace.span("track.render"):
+                rendered = prob.residuals(x)
+            with trace.span("track.loss"):
+                return prob.loss(*rendered)
+
+    with trace.span("track.optimizer"):
+        x = prob.x0()
+        f = score(x)
+        lam = torch.tensor(cfg.gn_lambda0, device=x.device)
+        eye = torch.eye(prob.p, device=x.device)
+        n_evals, steps = 1, []
+        for _ in range(cfg.gn_iters):
+            JtJ, Jtr = prob.normal_equations(x)
+            with trace.span("track.solve"):
+                A = JtJ + lam * torch.diag(torch.diagonal(JtJ)) + 1e-8 * eye
+                delta = -torch.linalg.solve_ex(A, Jtr).result
+                x_new = x + delta
+            f_new = score(x_new)
+            better = torch.isfinite(f_new) & (f_new < f)
+            x = torch.where(better, x_new, x)
+            f = torch.where(better, f_new, f)
+            lam = torch.where(better, lam * 0.33, lam * 10.0)
+            done = (better & (torch.linalg.norm(delta) < cfg.gn_tol)) | (lam > 1e7)
+            n_evals += 2
+            with trace.span("track.readback"):
+                better, done, loss = torch.stack([better, done, f]).tolist()
+            steps.append((bool(better), loss))
+            if done:
+                break
+        return x, f, n_evals, steps
 
 
 def track_frame_gn_impl(
@@ -317,17 +347,18 @@ def track_frame_gn_impl(
     """One level of Levenberg-Marquardt refinement (method="gn"); all
     tensors lie on the map's device. `n_evals` counts render passes; the
     divergence guard is the igs tracker's."""
-    prob = GaussNewtonProblem(gmap, base_pose, init_exposure, gt_img, K, width,
-                              height, cfg, gt_depth)
-    x, f, n_evals, _ = levenberg_marquardt(prob, cfg)
-    ok = bool(torch.all(torch.isfinite(x)) & torch.isfinite(f)
-              & (torch.linalg.norm(x[6:9]) < cfg.max_step))
-    if not ok:
-        x, f = prob.x0(), torch.tensor(1e3, device=x.device)
-    with torch.no_grad():
-        pose, exposure = prob.unpack(x)
-    return TrackResult(pose=pose, exposure=exposure, loss=f, n_evals=n_evals,
-                       rejected=not ok)
+    with trace.span("track.level"):
+        prob = GaussNewtonProblem(gmap, base_pose, init_exposure, gt_img, K, width,
+                                  height, cfg, gt_depth)
+        x, f, n_evals, _ = levenberg_marquardt(prob, cfg)
+        ok = bool(torch.all(torch.isfinite(x)) & torch.isfinite(f)
+                  & (torch.linalg.norm(x[6:9]) < cfg.max_step))
+        if not ok:
+            x, f = prob.x0(), torch.tensor(1e3, device=x.device)
+        with torch.no_grad():
+            pose, exposure = prob.unpack(x)
+        return TrackResult(pose=pose, exposure=exposure, loss=f, n_evals=n_evals,
+                           rejected=not ok)
 
 
 def _halve_image(img: torch.Tensor) -> torch.Tensor:
@@ -435,6 +466,7 @@ def track_frame(
     if gmap.means.device.type != dev.type:
         raise ValueError(f"the map lies on {gmap.means.device}, tracking on {dev}")
 
-    return track_frame_pyramid_impl(
-        gmap, *(to_device(x, dev) for x in (base_pose, init_exposure, gt_img, K)),
-        width, height, cfg, to_device(gt_depth, dev))
+    with trace.span("track.frame"):
+        return track_frame_pyramid_impl(
+            gmap, *(to_device(x, dev) for x in (base_pose, init_exposure, gt_img, K)),
+            width, height, cfg, to_device(gt_depth, dev))

@@ -11,26 +11,27 @@ fx=280, tile_capacity=512, default igs tracker) and its ground-truth frames;
   2. traces one more frame with torch.profiler and reports the device busy
      time (sum of kernel durations on the card; one stream, so they do not
      overlap), the idle share of the frame's wall time, kernel launches per
-     evaluation, device time by kernel, and host time in named ranges:
-     binning + gather, the forward render, the backward (autograd.grad),
-     and the rest (loss, optimizer, readbacks).
+     evaluation, device time by kernel, and the host time of the program's
+     own spans (gslam_tpu_torch/runtime/trace.py), total and self, with the
+     host syncs each held: track.bins, track.eval with its track.render,
+     track.loss, track.backward and track.readback, track.optimizer.
 mapping: chip_smoke.py's mapping point (131,072 slots, 100,000 live, a
 10-keyframe window at 320x240, tile_capacity=512);
   1. times N_PROFILE_STEPS `mapping_step`s with CUDA events after 2
      warm-up steps;
   2. traces one more step and reports the same device figures per step,
-     the blend kernels' share of the busy time, and host time in named
-     ranges: the window loss (projection, binning, gather, blend, losses),
-     the binning inside it, the backward, and the masked Adam.
+     the blend kernels' share of the busy time, and the program's spans:
+     map.render (projection, binning, gather, blend), the binning inside
+     it, map.loss, map.backward and map.adam.
 onemillion: the same at scripts/bench_1m_torch.py's point (2^20 slots,
 1,000,000 live, a 10-keyframe window at 640x480, tile_capacity=256, 4
 pairs per splat).
 gn: the tracking scene's frame 1 tracked with method="gn" (flat x 10 LM
 iterations, then pyr3 x 8) after one warm-up frame; traces one frame of each
-and reports the same device figures per render pass and host time in named
-ranges: binning (once per level) and the linearization (normal_equations:
-the primal and tangent passes through the forward-mode route, JtJ, Jtr);
-the rest is the candidate renders, the solves and the readbacks.
+and reports the same device figures per render pass and the program's
+spans: track.bins (once per level), track.linearize (normal_equations: the
+primal and tangent passes through the forward-mode route, JtJ, Jtr),
+track.eval (the candidate renders), track.solve and track.readback.
 Prints one JSON line per part, and the card's name and power limit.
 """
 
@@ -49,36 +50,37 @@ import chip_smoke as cs
 N_PROFILE_STEPS = 5  # timed mapping steps
 
 
-def ranged(name, fn):
-    """fn inside a torch.profiler range called `name`."""
-    from torch.profiler import record_function
+def program_spans():
+    """The host side of the program's spans in the last profiled run (the
+    recorder's session): by name, calls, total and self ms, and the host
+    syncs they held."""
+    from gslam_tpu_torch.runtime import trace
 
-    def wrapper(*a, **k):
-        with record_function(name):
-            return fn(*a, **k)
-    return wrapper
+    session = trace.snapshot()["session"]
+    out = defaultdict(lambda: {"calls": 0, "ms": 0.0, "self_ms": 0.0, "syncs": 0})
+    for sp in session["spans"] if session else ():
+        if sp["end_ns"] is not None:
+            agg = out[sp["name"]]
+            agg["calls"] += 1
+            agg["ms"] += (sp["end_ns"] - sp["start_ns"]) / 1e6
+            agg["self_ms"] += sp["self_ns"] / 1e6
+            agg["syncs"] += sp["syncs"]
+    return dict(out)
 
 
-def trace_summary(prof, ranges, wall_ms, per, per_name):
+def trace_summary(prof, wall_ms, per, per_name):
     """Device busy and idle share, launches and device ms by kernel, and the
-    host side of the named ranges, from one profiled run of `per` units.
-    Reads the profiler's raw events: `prof.events()` builds an event tree,
-    which took about a minute for one tracked frame (~173,000 kernels)."""
+    program's spans, from one profiled run of `per` units. Reads the
+    profiler's raw events: `prof.events()` builds an event tree, which took
+    about a minute for one tracked frame (~173,000 kernels)."""
     import torch
 
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    cuda = torch.autograd.DeviceType.CUDA
     dev_by_kernel = defaultdict(float)
     n_kernels = 0
-    host_ranges = defaultdict(float)
     for ev in prof.profiler.kineto_results.events():
-        name, device = ev.name(), ev.device_type()
-        if name in ranges:
-            # a named range shows on the host and, as an annotation spanning
-            # its kernels, on the device: only its host side is counted
-            if device == cpu:
-                host_ranges[name] += ev.duration_ns() / 1e6
-        elif device == cuda and not ev.is_user_annotation():
-            dev_by_kernel[name] += ev.duration_ns() / 1e6
+        if ev.device_type() == cuda and not ev.is_user_annotation():
+            dev_by_kernel[ev.name()] += ev.duration_ns() / 1e6
             n_kernels += 1
     busy = sum(dev_by_kernel.values())
     blend_ms = sum(v for k, v in dev_by_kernel.items() if "blend_" in k)
@@ -88,7 +90,7 @@ def trace_summary(prof, ranges, wall_ms, per, per_name):
         "device_idle_share": 1.0 - busy / wall_ms,
         "blend_kernels_ms": blend_ms, "blend_share_of_busy": blend_ms / busy if busy else 0.0,
         "kernel_launches": n_kernels, f"launches_per_{per_name}": n_kernels / per,
-        "host_ms": dict(host_ranges),
+        "host_spans": program_spans(),
         # ranked, so that kernels whose names share 90 characters stay apart
         "device_ms_by_kernel": {f"{i}. {k[:90]}": v for i, (k, v) in enumerate(top, 1)},
     }
@@ -148,27 +150,14 @@ def profile_mapping(smi, trace, point, W, H, name="mapping"):
                       "ms": {k: cs.cuda_ms(fn, reps=5, warmup=1) for k, fn in parts.items()}}),
           flush=True)
 
-    patched = [(backend_ops, "_window_loss", "window_loss"),
-               (rasterize, "_bin_cameras", "binning"),
-               (backend_ops, "adam_step", "adam"),
-               (torch.autograd, "grad", "backward")]
-    saved = [getattr(m, a) for m, a, _ in patched]
-    for m, a, label in patched:
-        setattr(m, a, ranged(label, getattr(m, a)))
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        for (m, a, _), fn in zip(patched, saved):
-            setattr(m, a, fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     if trace:
         prof.export_chrome_trace(trace.replace(".json", f"_{name}.json"))
-    summary = trace_summary(prof, [label for *_, label in patched], wall_ms, 1, "step")
-    summary["host_other_ms"] = wall_ms - sum(
-        v for k, v in summary["host_ms"].items() if k != "binning")  # inside window_loss
+    summary = trace_summary(prof, wall_ms, 1, "step")
     print(json.dumps({"part": f"{name}_trace", "nvidia_smi": smi, **summary}), flush=True)
 
 
@@ -184,26 +173,14 @@ def profile_gn(smi, gmap, K, tcfg, poses, gts, trace):
                        ("pyr3x8", dict(pyramid_levels=3, gn_iters=8))):
         cfg = dataclasses.replace(tcfg, method="gn", **over)
         track.track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, cs.W, cs.H, cfg)
-        patched = [(track, "compute_bins", "bins"),
-                   (track.GaussNewtonProblem, "normal_equations", "linearize")]
-        saved = [getattr(m, a) for m, a, _ in patched]
-        for m, a, rname in patched:
-            setattr(m, a, ranged(rname, getattr(m, a)))
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                r = track.track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, cs.W, cs.H,
-                                      cfg)
-                torch.cuda.synchronize()
-                wall_ms = 1e3 * (time.perf_counter() - t0)
-        finally:
-            for (m, a, _), fn in zip(patched, saved):
-                setattr(m, a, fn)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r = track.track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, cs.W, cs.H, cfg)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
         if trace:
             prof.export_chrome_trace(trace.replace(".json", f"_gn_{name}.json"))
-        summary = trace_summary(prof, [rname for *_, rname in patched], wall_ms, r.n_evals,
-                                "pass")
-        summary["host_other_ms"] = wall_ms - sum(summary["host_ms"].values())
+        summary = trace_summary(prof, wall_ms, r.n_evals, "pass")
         print(json.dumps({"part": f"gn_trace_{name}", "nvidia_smi": smi,
                           "n_evals": r.n_evals, **summary}), flush=True)
 
@@ -236,7 +213,6 @@ def main() -> int:
     from gslam_tpu_torch.ops.track_fused import (
         gather_tracking_tiles, render_tracking_fused,
     )
-    from gslam_tpu_torch.tracking import track
     from gslam_tpu_torch.tracking.track import TrackingConfig, track_frame
 
     W, H = cs.W, cs.H
@@ -278,26 +254,16 @@ def main() -> int:
                       "ms_per_eval": [f["ms"] / f["n_evals"] for f in frames]}),
           flush=True)
 
-    # 2. one traced frame with named host ranges
-    track.compute_bins = ranged("bins", track.compute_bins)
-    track.gather_tracking_tiles = ranged("gather", track.gather_tracking_tiles)
-    track.render_tracking_fused = ranged("render_fwd", track.render_tracking_fused)
-    grad = torch.autograd.grad
-    torch.autograd.grad = ranged("backward", grad)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            r = track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, W, H, tcfg)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        torch.autograd.grad = grad
+    # 2. one traced frame with the program's spans
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = track_frame(gmap, poses[0], torch.zeros(2), gts[1], K, W, H, tcfg)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    summary = trace_summary(prof, ("bins", "gather", "render_fwd", "backward"), wall_ms,
-                            r.n_evals, "eval")
-    summary["host_other_ms"] = wall_ms - sum(summary["host_ms"].values())
+    summary = trace_summary(prof, wall_ms, r.n_evals, "eval")
     print(json.dumps({"part": "frame_trace", "nvidia_smi": smi, "n_evals": r.n_evals,
                       **summary}), flush=True)
     return 0

@@ -63,6 +63,20 @@ def test_slam_completes(slam_run):
     assert metrics["health"] == 0 and not metrics["diverged"]
 
 
+def test_slam_phases_come_from_the_backend_spans(slam_run):
+    """phase_ms, phase_total_s and phase_calls keep their keys: the backend's
+    phases, read from the recorder's backend.<phase> spans of this run."""
+    _, _, metrics, _ = slam_run
+    calls = metrics["phase_calls"]
+    assert {"map", "insert", "sync"} <= set(calls) <= {"map", "insert", "prune",
+                                                       "pose_refine", "sync"}
+    assert set(metrics["phase_ms"]) == set(metrics["phase_total_s"]) == set(calls)
+    for k, n in calls.items():
+        total = metrics["phase_total_s"][k]
+        assert n > 0 and metrics["phase_ms"][k] > 0
+        assert abs(metrics["phase_ms"][k] * n / 1e3 - total) <= 0.0051 + 0.0051 * n / 1e3
+
+
 def test_slam_trajectory_quality(slam_run):
     _, _, metrics, _ = slam_run
     assert metrics["ate"] < 0.05, metrics

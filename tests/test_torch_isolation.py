@@ -53,6 +53,7 @@ def test_sources_found():
             "gslam_tpu_torch/opt/lbfgs.py", "gslam_tpu_torch/tracking/warp.py",
             "gslam_tpu_torch/runtime/messages.py", "gslam_tpu_torch/runtime/frontend.py",
             "gslam_tpu_torch/runtime/backend.py", "gslam_tpu_torch/runtime/system.py",
+            "gslam_tpu_torch/runtime/trace.py",
             "gslam_tpu_torch/eval/metrics.py", "gslam_tpu_torch/viz/visualization.py",
             "gslam_tpu_torch/io/stream.py", "main_torch.py", "pipeline_torch.py",
             "view_torch.py", "gslam_tpu_torch/io/__init__.py", "gslam_tpu_torch/io/raytrace.py",
