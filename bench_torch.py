@@ -24,7 +24,8 @@ state cannot touch another section's numbers:
 A marginal rate is bench.py's formula: run n1 and then n2 steps, each run
 ending in one wait, and take (t2 - t1) / (n2 - n1). bench.py's scans ran
 whole on the device; the port's tracker reads back once per L-BFGS
-evaluation and its mapping step syncs in binning, so on the card a marginal
+evaluation and its mapping step syncs the host 3 times a step (2 in the
+render, 1 in the loss; binning holds none), so on the card a marginal
 rate is WALL time with the host included, not device time. The device's
 own share comes from one torch.profiler run of one extra frame, render or
 step outside the timed windows: the kernels' summed durations
@@ -436,8 +437,8 @@ def section_mapping(device=None, cap=cs.MAP_CAP, n_live=cs.MAP_LIVE, width=cs.W,
                     f"{ITERS_PER_PASS} iters/pass, vs >=10 Hz target",
         "method": f"{n_warm} warm-up steps, then {iters} steps with one wait at the end: "
                   "host clock (mapping_iter_ms) and CUDA events from the first step's start "
-                  "to the last step's end (cuda_events_iter_ms); binning syncs the host "
-                  "once per camera, so both are wall time with the host included",
+                  "to the last step's end (cuda_events_iter_ms); the step syncs the host "
+                  "3 times, so both are wall time with the host included",
         "cuda_events_iter_ms": device_ms if dev.type == "cuda" else None,
         "n_warmup": n_warm, "total_loss_first_last": [losses[0], losses[-1]],
         "blend_launches_per_step": _per(launches, iters),

@@ -5,7 +5,8 @@
 
 Phases, one JSON line each:
   1. env: the card (nvidia-smi name and power limit), CUDA and nvcc
-     versions; builds the blend kernels from gslam_tpu_torch/csrc/.
+     versions; builds the blend and binning kernels from
+     gslam_tpu_torch/csrc/ (`build_s`, `binning_build_s`).
   2. kernels: each CUDA kernel against its plain PyTorch version on real
      gathered rows of a 50k-splat map (T=300 tiles, M=512, and the 160x120
      pyramid level, T=80), with times from CUDA events (`ms`, one launch
@@ -17,6 +18,17 @@ Phases, one JSON line each:
      per tile that the card's rule gives. Also on one camera's rows of the
      mapping point's 100k-live map (T=300, M=512), the lists that mapping
      feeds the kernels (phase 14 holds the 1M shape the same way).
+  2a. binning: ops/binning.py's bin_cameras (csrc/binning.cu) against the
+     plain bin_gaussians camera by camera on the card, and against
+     bench_binning.py's sync-free torch ops, bit for bit in every field, on
+     the real inputs of a tracking level (1 camera of the 50k map, M=512)
+     and of the mapping point's window (10 cameras, 131,072 slots); phase
+     14 adds the 1M window (10 cameras, 2^20 slots at 640x480, M=256).
+     Times: the call and the plain path by CUDA events, each kernel's
+     device time by the profiler beside the torch-ops stage that does its
+     work, and the bound from the bytes the call needs (binning_bytes).
+     Every path below reads binning's launches as it reads the blend's
+     (each entry point once a call; a mapping step one call).
   3. reference: track_frame on a small scene on the card and on the CPU
      (plain blend); the two poses must agree.
   4. tracking: the first main path. BASELINE config 1 (N=50,000 splats,
@@ -135,9 +147,11 @@ Phases, one JSON line each:
  14. onemillion: the seventh main path, BASELINE config 3's scale point
      (scripts/bench_1m_torch.py in this process: 2^20 slots, 1,000,000
      live, 640x480, fx 560, tile_capacity 256, 4 pairs per splat, a window
-     of 10 of 12 keyframes): the script's line (render, compact and step
-     ms, passes/s, peak memory) plus blend launches per render (1 + 0) and
-     per mapping step (10 + 10), both checked, finite losses and parameters,
+     of 10 of 12 keyframes): binning held as in phase 2a on the window's
+     inputs of the fresh map, then the script's line (render, compact and
+     step ms, passes/s, peak memory) plus blend launches per render (1 + 0)
+     and per mapping step (10 + 10), both checked, one binning call a
+     render and a step, finite losses and parameters,
      the photometric loss of the first and last 3 steps, the largest pair
      count against the 4,194,304-pair budget and the tiles over capacity in
      each window camera. The point is built once; the kernels are held
@@ -158,6 +172,9 @@ Phases, one JSON line each:
      profiled device busy time; launches of each igs frame equal to its
      evaluations, none in GN, 10 + 10 a mapping step, 1 + 0 a 1M render; the
      headline is the GN part's rate.
+Then one `kernels` line: blend_fwd, blend_bwd, bin_count, bin_emit and
+bin_tile_lists with their launches by path, ms, plain_ms and bound_ms (the
+binning kernels' at the 1M window, each path's shape under by_shape).
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -291,9 +308,11 @@ def phase_env():
                          timeout=60).stdout.strip().splitlines()
     t0 = time.perf_counter()
     cuda_build.load("blend")
+    t1 = time.perf_counter()
+    cuda_build.load("binning")
     emit("env", nvidia_smi=smi, torch=torch.__version__, torch_cuda=torch.version.cuda,
          nvcc=ver[-1] if ver else None, device=torch.cuda.get_device_name(0),
-         build_s=time.perf_counter() - t0)
+         build_s=t1 - t0, binning_build_s=time.perf_counter() - t1)
     return smi
 
 
@@ -487,6 +506,197 @@ def phase_kernels(gmap, K, tcfg, point, smi):
     return {"tracking_full_res": full, "pyramid_l1": half, "mapping_full_res": mapping}
 
 
+# ------------------------------------------------------------------ binning
+
+# binning's hand-written entry points and their CUDA kernels (bin_scan and
+# bin_sort call cub); an entry point launches once per bin_cameras call
+BIN_KERNELS = {"bin_count": "bin_count_kernel", "bin_emit": "bin_emit_kernel",
+               "bin_tile_lists": "bin_tile_lists_kernel"}
+BIN_LAUNCHES = {}  # path: binning's launches, read just after the path ran
+
+
+def reset_launches():
+    """Set the blend and binning launch counters to 0."""
+    from gslam_tpu_torch.ops import binning, blend
+
+    blend.reset_launches()
+    binning.reset_launches()
+
+
+def binning_launches(path, add=False):
+    """Binning's launches since reset_launches, kept as `path`'s (added to
+    what it holds with add): every entry point the same count, one a call."""
+    from gslam_tpu_torch.ops import binning
+
+    got = dict(binning.launches)
+    check(len(set(got.values())) == 1, f"{path}: binning's entry points launched {got}")
+    if add and path in BIN_LAUNCHES:
+        got = {k: BIN_LAUNCHES[path][k] + n for k, n in got.items()}
+    BIN_LAUNCHES[path] = got
+    return got
+
+
+def binning_inputs(fn):
+    """The arguments (means2d, radii, depths, valid, width, height, cfg) of
+    the first ops.rasterize._bin_cameras call that fn() makes."""
+    from gslam_tpu_torch.ops import rasterize
+
+    seen, orig = [], rasterize._bin_cameras
+
+    def capture(*args):
+        if not seen:
+            seen.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return orig(*args)
+
+    rasterize._bin_cameras = capture
+    try:
+        fn()
+    finally:
+        rasterize._bin_cameras = orig
+    check(len(seen) == 1, "no binning call was seen")
+    return seen[0]
+
+
+def binning_bytes(C, N, live_pairs, T, capacity, end_bit):
+    """The bytes a binning call needs at the least, by the stage that moves
+    them: the splats read once (means2d, radii and valid by bin_count, the
+    depths by bin_emit), each kept pair written once (an 8-byte key and a
+    4-byte id), one stable radix sort of them in 8-bit digits over the key's
+    end_bit bits (each pass reads and writes every pair) and the lists
+    gathered (an id read, an id and a mask written per list entry, a count
+    per tile). Nothing for the scan, the per-splat rectangles or the slots
+    past a camera's pairs: those are the design's, not the function's."""
+    pairs = 12 * live_pairs
+    return {"bin_count": 13 * C * N, "bin_emit": 4 * C * N + pairs,
+            "sort": 2 * pairs * -(-end_bit // 8), "bin_tile_lists": C * T * (9 * capacity + 4)}
+
+
+def device_ms_by_kernel(fn, calls=5):
+    """Device ms per call of each kernel fn() launches, over `calls` calls
+    under torch.profiler (by the kernel's name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda and not ev.is_user_annotation():
+            out[ev.name()] = out.get(ev.name(), 0.0) + ev.duration_ns() / 1e6 / calls
+    return out
+
+
+def binning_vs_plain(inputs):
+    """bin_cameras (the kernels) against the plain bin_gaussians camera by
+    camera on the card, and against bench_binning.py's sync-free torch ops,
+    on one path's real inputs: every field equal bit for bit. Times: the call
+    (`ms`, CUDA events), the plain path (`plain_ms`), the torch ops
+    (`torch_ops_ms`); each kernel's device ms by the profiler beside the
+    torch-ops stage that does its work (`plain_ms`) and its part of the
+    bytes bound (binning_bytes at PEAK_BYTES)."""
+    import torch
+
+    import bench_binning as bb
+    from gslam_tpu_torch.ops import binning
+
+    means2d, radii, depths, valid, width, height, cfg = inputs
+    C, N = valid.shape
+    ts = cfg.tile_size
+    args = (ts, -(-width // ts), -(-height // ts), int(cfg.pairs_per_gaussian * N),
+            cfg.tile_capacity, cfg.max_span)
+    _, tiles_x, tiles_y, P, cap, span = args
+    T = tiles_x * tiles_y
+    xs = (means2d, radii, depths, valid)
+
+    def kernels():
+        return binning.bin_cameras(*xs, *args)
+
+    def plain():
+        bins = [binning.bin_gaussians(*(x[c] for x in xs), *args) for c in range(C)]
+        return binning.TileBins(*(torch.stack(f) for f in zip(*bins)))
+
+    def torch_ops():
+        return bb.bin_cameras_torch(*xs, *args)
+
+    got, want, ops = kernels(), plain(), torch_ops()
+    unequal = {name: [k for k, a, b in zip(got._fields, got, other) if not torch.equal(a, b)]
+               for name, other in (("plain", want), ("torch_ops", ops))}
+    live = int(torch.clamp(got.n_pairs.to(torch.int64), max=P).sum())
+    end_bit = 32 + (C * (T + 1) - 1).bit_length()
+    need = binning_bytes(C, N, live, T, cap, end_bit)
+    del want, ops
+
+    # the torch-ops stages, each from the stage before it
+    tx0, ty0, sx, sy, counts = bb.count_torch(means2d, radii, valid, ts, tiles_x, tiles_y,
+                                              span)
+    incl = torch.cumsum(counts, 1)
+    key, vals = bb.emit_torch(incl, counts, tx0, ty0, sx, sy, depths, P, T, tiles_x)
+    sk, sv = bb.sort_torch(key, vals)
+    stage_ms = {
+        "bin_count": cuda_ms(lambda: bb.count_torch(means2d, radii, valid, ts, tiles_x,
+                                                    tiles_y, span), reps=10),
+        "scan": cuda_ms(lambda: torch.cumsum(counts, 1), reps=10),
+        "bin_emit": cuda_ms(lambda: bb.emit_torch(incl, counts, tx0, ty0, sx, sy, depths, P,
+                                                  T, tiles_x), reps=10),
+        "sort": cuda_ms(lambda: bb.sort_torch(key, vals), reps=10),
+        "bin_tile_lists": cuda_ms(lambda: bb.lists_torch(sk, sv, incl[:, -1], C, P, T, cap),
+                                  reps=10),
+    }
+    del tx0, ty0, sx, sy, counts, incl, key, vals, sk, sv
+    device = device_ms_by_kernel(kernels)
+    per_kernel = {name: next((v for k, v in device.items() if kname in k), None)
+                  for name, kname in BIN_KERNELS.items()}
+    cub_ms = sum(v for k, v in device.items() if not any(kn in k for kn in BIN_KERNELS.values()))
+    row = dict(
+        C=C, N=N, T=T, M=cap, width=width, height=height, max_pairs=P, live_pairs=live,
+        end_bit=end_bit, unequal=unequal, ms=cuda_ms(kernels),
+        plain_ms=cuda_ms(plain, reps=3, warmup=1), torch_ops_ms=cuda_ms(torch_ops, reps=10),
+        bound_ms=1e3 * sum(need.values()) / PEAK_BYTES, bound_by="bytes",
+        bytes_needed=need,
+        cub_device_ms=cub_ms, cub_plain_ms={"scan": stage_ms["scan"], "sort": stage_ms["sort"]},
+        cub_bound_ms=1e3 * need["sort"] / PEAK_BYTES,
+        kernels={name: dict(ms=per_kernel[name], plain_ms=stage_ms[name],
+                            bound_ms=1e3 * need[name] / PEAK_BYTES, bound_by="bytes")
+                 for name in BIN_KERNELS})
+    check(not unequal["plain"] and not unequal["torch_ops"],
+          f"binning {C}x{N} at {width}x{height}: fields differ {unequal}")
+    check(all(v is not None for v in per_kernel.values()),
+          f"binning: a kernel was not seen on the device: {sorted(device)}")
+    return row
+
+
+def phase_binning(gmap, K, tcfg, point, smi):
+    """Binning's kernels against the plain path (binning_vs_plain) on the
+    real inputs of two main paths: a tracking level's compute_bins (one
+    camera of the 50k map at 320x240, the inflated radii, M=512, 8 pairs a
+    splat) and the mapping point's window render (10 cameras, 131,072 slots,
+    M=512). Phase 14 holds the 1M window (10 cameras, 2^20 slots at
+    640x480, M=256, 4 pairs) the same way."""
+    import torch
+
+    from gslam_tpu_torch.ops.rasterize import compute_bins, render_rows
+
+    cfg = tcfg.render
+    eye = torch.eye(4, device="cuda")
+    rows = {"tracking": binning_vs_plain(binning_inputs(lambda: compute_bins(
+        gmap.means, gmap.quats, gmap.log_scales, gmap.alive, eye[None], K[None], W, H, cfg,
+        radius_scale=tcfg.bin_radius_margin)))}
+    mgmap, _opt, kf, _pose_opt, widx, _wmask, mK, mcfg = point
+    with torch.no_grad():
+        rows["mapping"] = binning_vs_plain(binning_inputs(lambda: render_rows(
+            **mgmap.render_kwargs(), viewmats=kf.poses()[widx],
+            Ks=mK[None].expand(len(widx), 3, 3), width=W, height=H, cfg=mcfg.render)))
+    emit("binning_vs_plain", nvidia_smi=smi, **rows)
+    check(rows["tracking"]["C"] == 1 and rows["mapping"]["C"] == WINDOW,
+          f"binning shapes {rows['tracking']['C']}, {rows['mapping']['C']} cameras")
+    return rows
+
+
 def phase_reference():
     """The whole slice on the card against the CPU path on a small scene."""
     import torch
@@ -569,7 +779,7 @@ def phase_tracking(gmap, K, tcfg, poses, gts, smi):
     from gslam_tpu_torch.ops import blend
     from gslam_tpu_torch.tracking.track import track_frame
 
-    blend.reset_launches()
+    reset_launches()
     est, exposure, frames = [], torch.zeros(2, device="cuda"), []
     for i in range(N_FRAMES):
         prior = chained_prior(est)
@@ -590,6 +800,7 @@ def phase_tracking(gmap, K, tcfg, poses, gts, smi):
         est.append(r.pose)
         exposure = r.exposure
     launches = dict(blend.launches)
+    binning_launches("tracking")
     n_evals = sum(f["n_evals"] for f in frames)
     final_err = frames[-1]["t_err_m"]
     emit("tracking", nvidia_smi=smi, frames=frames, sum_n_evals=n_evals,
@@ -750,7 +961,7 @@ def phase_gn(gmap, K, tcfg, poses, gts, smi):
         track.levenberg_marquardt = lm
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        blend.reset_launches()
+        reset_launches()
         est, exposure, frames = [], torch.zeros(2, device="cuda"), []
         try:
             with warnings.catch_warnings(record=True) as seen:
@@ -777,6 +988,7 @@ def phase_gn(gmap, K, tcfg, poses, gts, smi):
         finally:
             torch.cuda.set_sync_debug_mode("default")
             track.levenberg_marquardt = orig
+        binning_launches("gn", add=True)
         runs[name] = dict(
             frames=frames, launches=dict(blend.launches),
             max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
@@ -909,7 +1121,7 @@ def phase_mapping(point, smi):
 
     from gslam_tpu_torch.mapping import pruning
     from gslam_tpu_torch.mapping.backend_ops import mapping_step, window_grads
-    from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.ops import binning, blend
 
     gmap, opt, kf, pose_opt, widx, wmask, K, cfg = point
     n_warm, n_pass = 2, cfg.num_iters_mapping
@@ -919,7 +1131,7 @@ def phase_mapping(point, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(n_warm + n_pass):
-        blend.reset_launches()
+        reset_launches()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -930,6 +1142,9 @@ def phase_mapping(point, smi):
         b.record()
         b.synchronize()
         launched = dict(blend.launches)
+        check(set(binning.launches.values()) == {1},
+              f"step {i} binned {dict(binning.launches)}, expected one call")
+        binning_launches("mapping", add=True)
         for k in totals:
             totals[k] += launched[k]
         check(launched == {"blend_fwd": WINDOW, "blend_bwd": WINDOW},
@@ -1651,13 +1866,14 @@ def phase_slam(smi):
     slam = FusedSlam(cfg, W, H, capacity=MAP_CAP, kf_capacity=KF_CAP, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    blend.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with FrameClock() as clock:
         m = slam.run(ds, chunk=1, sync_every=4, eval_stride=4)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(blend.launches)
+    binning_launches("slam")
     peak = torch.cuda.max_memory_allocated()
     frames = clock.split()
     rest = frames[1:]
@@ -2020,13 +2236,14 @@ def phase_actor(smi):
     be.refine_poses = refine_poses
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    blend.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with ActorClock(system) as clock:
         m = system.run(ds)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(blend.launches)
+    binning_launches("actor")
     peak = torch.cuda.max_memory_allocated()
     frames = clock.split()
     rest = frames[1:]
@@ -2497,13 +2714,14 @@ def phase_sharded(smi):
     for d in cards:
         torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(d)
-    blend.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with ShardedClock(slam) as clock:
         m = slam.run(ds, eval_stride=eval_stride)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(blend.launches)
+    binning_launches("sharded")
     peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
     frames = clock.split()
     n_evals = sum(f["evals"] for f in frames)
@@ -2617,7 +2835,7 @@ def phase_cli(smi):
                                       "--chunk", "1", "--sync-every", "4", *CLI_FLAGS])):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            blend.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             if name == "actor":
                 SlamSystem.run = clocked_run
@@ -2636,6 +2854,7 @@ def phase_cli(smi):
                     if (run_dir / "trajectory.npy").is_file() else None)
             need = ("metrics.json", "args.txt", "trajectory.npy") + (
                 ("splats.npz",) if name == "actor" else ("telemetry.npz",))
+            binning_launches("cli", add=True)
             runs[name] = dict(
                 wall_s=time.perf_counter() - t0, launches=dict(blend.launches),
                 frame_ms=frames, bootstrap_ms=frames[0],
@@ -2713,6 +2932,7 @@ def phase_onemillion(smi):
     import torch
 
     from gslam_tpu_torch.ops import blend
+    from gslam_tpu_torch.ops.rasterize import render_rows
 
     bench, *_ = tools()
     w, h = bench.W, bench.H
@@ -2723,9 +2943,17 @@ def phase_onemillion(smi):
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = {"onemillion": compare_and_time(
         *onemillion_rows(gmap, kf, widx, K, cfg, w, h), gen)}
-    blend.reset_launches()
+    with torch.no_grad():
+        bin_row = binning_vs_plain(binning_inputs(lambda: render_rows(
+            **gmap.render_kwargs(), viewmats=kf.poses()[widx],
+            Ks=K[None].expand(len(widx), 3, 3), width=w, height=h, cfg=cfg.render)))
+    emit("onemillion_binning_vs_plain", nvidia_smi=smi, onemillion=bin_row)
+    check(bin_row["C"] == len(widx) and bin_row["T"] == 1200 and bin_row["M"] == 256
+          and bin_row["max_pairs"] == 4 * bench.CAP, f"unexpected 1M binning shape {bin_row}")
+    reset_launches()
     detail, steps, state = bench.measure(point)
     launches = dict(blend.launches)
+    bin_launches = binning_launches("onemillion")
     line = bench.result_line(detail, steps, w, h)
     print(json.dumps(line), flush=True)
 
@@ -2747,7 +2975,7 @@ def phase_onemillion(smi):
     over = tiles_over_capacity(gmap, kf.poses()[widx], K, w, h, cfg.render)
     result = dict(
         nvidia_smi=smi, build_s=build_s, n_steps=n_steps, n_warmup=n_steps - len(timed),
-        launches=launches, expected_launches=expected,
+        launches=launches, expected_launches=expected, binning_launches=bin_launches,
         blend_launches_per_render=detail["blend_launches_per_render"],
         blend_launches_per_step=detail["blend_launches_per_step"],
         photometric_loss_first3=float(np.mean([st["photometric_loss"] for st in timed[:3]])),
@@ -2763,11 +2991,14 @@ def phase_onemillion(smi):
     check(detail["blend_launches_per_step"] == {"blend_fwd": window, "blend_bwd": window},
           f"a step launched {detail['blend_launches_per_step']}, expected {window} + {window}")
     check(launches == expected, f"onemillion launched {launches}, expected {expected}")
+    check(bin_launches["bin_count"] == reps + n_steps,
+          f"onemillion binned {bin_launches}, expected one call a render and a step "
+          f"({reps} + {n_steps})")
     check(finite and detail["render_finite"], "onemillion produced non-finite values")
     check(result["photometric_loss_last3"] < result["photometric_loss_first3"],
           "the photometric loss did not fall over the pass")
     check(result["max_n_pairs"] > 0, "onemillion binned no pair")
-    return launches, shapes
+    return launches, shapes, bin_row
 
 
 STUDY_FRAMES = 14  # docs/TRACKING_STUDY.md's oracle run
@@ -2784,7 +3015,7 @@ def phase_scripts(smi):
     from gslam_tpu_torch.ops import blend
 
     _bench, study, demo, repro = tools()
-    blend.reset_launches()
+    reset_launches()
     times = {}
     t0 = time.perf_counter()
     oracle = study.main(["oracle", "--frames", str(STUDY_FRAMES)])
@@ -2798,6 +3029,7 @@ def phase_scripts(smi):
     times["repro_f16_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = dict(blend.launches)
+    binning_launches("scripts")
 
     errs = np.array(oracle["per_frame_err_m"])
     objectives = [row[k][f] for row in rows[1:] for k in ("prior", "gt", "diverged", "tracked")
@@ -2841,7 +3073,7 @@ def phase_bench(smi):
     import bench_torch
     from gslam_tpu_torch.ops import blend
 
-    blend.reset_launches()
+    reset_launches()
     parts, times = {}, {}
     for section, run in bench_torch.SECTIONS.items():
         t0 = time.perf_counter()
@@ -2849,6 +3081,7 @@ def phase_bench(smi):
         times[f"{section}_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = dict(blend.launches)
+    binning_launches("bench")
     headline = bench_torch._summarize(parts)
     emit("bench", nvidia_smi=smi, launches=launches, **times,
          headline={k: v for k, v in headline.items() if k != "detail"})
@@ -2916,6 +3149,7 @@ def main() -> int:
     point = mapping_point()
     shapes = phase_kernels(gmap, K, tcfg, point, smi)
     full = shapes["tracking_full_res"]
+    bin_rows = phase_binning(gmap, K, tcfg, point, smi)
     phase_reference()
     poses, gts = tracking_frames(gmap, K, tcfg.render, xis)
     launches = phase_tracking(gmap, K, tcfg, poses, gts, smi)
@@ -2932,7 +3166,7 @@ def main() -> int:
     phase_sharded_reference()
     sharded_launches = phase_sharded(smi)
     cli_launches, shapes["cli_full_res"] = phase_cli(smi)
-    onemillion_launches, onemillion_shapes = phase_onemillion(smi)
+    onemillion_launches, onemillion_shapes, bin_rows["onemillion"] = phase_onemillion(smi)
     shapes.update(onemillion_shapes)
     scripts_launches = phase_scripts(smi)
     bench_launches = phase_bench(smi)
@@ -2958,6 +3192,23 @@ def main() -> int:
                               | {"T": r["T"], "M": r["M"]}
                               for k, r in shapes.items()})
                for name in ("blend_fwd", "blend_bwd")]
+    # binning's kernels (they replace no Pallas kernel: the JAX package bins
+    # in jnp); launches by path from BIN_LAUNCHES, gn included (it bins, and
+    # blends through the forward-mode route); the headline numbers are the
+    # 1M window's (vga1m-map's shape), by_shape holds each path's
+    head = bin_rows["onemillion"]["kernels"]
+    kernels += [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/binning.cu",
+                     replaces=None, launches=sum(p[name] for p in BIN_LAUNCHES.values()),
+                     launches_by_path={k: p[name] for k, p in BIN_LAUNCHES.items()},
+                     max_abs_err=0, ms=head[name]["ms"], ms_back_to_back=None,
+                     plain_ms=head[name]["plain_ms"], bound_ms=head[name]["bound_ms"],
+                     bound_by="bytes", library_ms=None,
+                     by_shape={k: r["kernels"][name] | {f: r[f] for f in ("C", "N", "T", "M")}
+                               for k, r in bin_rows.items()})
+                for name in BIN_KERNELS]
+    check(set(BIN_LAUNCHES) == set(by_path) | {"gn"} and all(
+        p["bin_count"] > 0 for p in BIN_LAUNCHES.values()),
+        f"binning launches by path {BIN_LAUNCHES}")
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)

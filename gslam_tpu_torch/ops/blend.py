@@ -183,11 +183,7 @@ _SIGNATURES = {
 
 
 def _kernel(fn_name: str):
-    lib = cuda_build.load("blend")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = _SIGNATURES[fn_name]
-    fn.restype = ctypes.c_int
-    return fn
+    return cuda_build.function("blend", fn_name, _SIGNATURES[fn_name])
 
 
 def _check(name, x, shape, dtype, device):
@@ -219,16 +215,12 @@ def _check_rows(xy, con, op, feat, ts):
     return T, M, P
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def fwd_segments(T, M, ts):
     """The depth segments per tile that blend_fwd takes for T tiles of M
     slots on the current card (csrc/blend.cu blend_fwd_segments)."""
     S = _I()
-    _raise_on(_kernel("blend_fwd_segments")(T, M, ts, ctypes.byref(S)), "blend_fwd_segments")
+    cuda_build.check(_kernel("blend_fwd_segments")(T, M, ts, ctypes.byref(S)),
+                     "blend_fwd_segments")
     return S.value
 
 
@@ -255,7 +247,7 @@ def blend_fwd_cuda(xy, con, op, feat, ts, tiles_x, alpha_cut, alpha_clamp, min_t
             err = _kernel("blend_fwd")(*args, stream)
         else:
             err = _kernel("blend_fwd_split")(*args, segments, stream)
-    _raise_on(err, "blend_fwd")
+    cuda_build.check(err, "blend_fwd")
     launches["blend_fwd"] += 1
     return out, tf, touched
 
@@ -280,7 +272,7 @@ def blend_bwd_cuda(xy, con, op, feat, g_out, g_tf, ts, tiles_x, alpha_cut,
                  g_out.data_ptr(), g_tf.data_ptr(), dxy.data_ptr(), dcon.data_ptr(),
                  dop.data_ptr(), dfeat.data_ptr(), T, M, ts, tiles_x, alpha_cut,
                  alpha_clamp, stream)
-    _raise_on(err, "blend_bwd")
+    cuda_build.check(err, "blend_bwd")
     launches["blend_bwd"] += 1
     return dxy, dcon, dop, dfeat
 

@@ -84,3 +84,18 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def function(name: str, fn_name: str, argtypes: list):
+    """Entry point fn_name of csrc/<name>.cu's library, with its argument
+    types; it returns an int, 0 or a CUDA error."""
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise where an entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from gslam_tpu_torch import resolve_device, to_device
-from gslam_tpu_torch.ops.binning import bin_gaussians
+from gslam_tpu_torch.ops.binning import bin_cameras
 from gslam_tpu_torch.ops.blend import blend_fwd_plain, blend_tiles_rows
 from gslam_tpu_torch.ops.projection import ProjectionOutput, project_gaussians
 from gslam_tpu_torch.runtime import trace
@@ -93,23 +93,16 @@ def project_cameras(means, quats, scales, alive, viewmats, Ks, width, height,
 @torch.no_grad()
 def _bin_cameras(means2d, radii, depths, valid, width, height, cfg: RenderConfig
                  ) -> CameraBins:
-    """Tile lists of each camera ([C, N] inputs), one camera at a time: the
-    binning's pair grid (N by up to max_span^2) is the largest tensor of a
-    render, and C of them at once would not pay for the launches they save.
-    The span `binning` marks it on the profiler's timeline."""
+    """Tile lists of each camera ([C, N] inputs), all cameras in one call
+    (ops/binning.py `bin_cameras`). The span `binning` marks it on the
+    profiler's timeline."""
     with trace.span("binning"):
-        n = means2d.shape[1]
         ts = cfg.tile_size
-        out = [bin_gaussians(means2d[c], radii[c], depths[c], valid[c], ts,
-                             -(-width // ts), -(-height // ts),
-                             int(cfg.pairs_per_gaussian * n), cfg.tile_capacity,
-                             cfg.max_span)
-               for c in range(means2d.shape[0])]
-        return CameraBins(
-            tile_gauss=torch.stack([b.tile_gauss for b in out]),
-            tile_mask=torch.stack([b.tile_mask for b in out]),
-            n_pairs=torch.stack([b.n_pairs for b in out]),
-        )
+        b = bin_cameras(means2d, radii, depths, valid, ts, -(-width // ts),
+                        -(-height // ts), int(cfg.pairs_per_gaussian * means2d.shape[1]),
+                        cfg.tile_capacity, cfg.max_span)
+        return CameraBins(tile_gauss=b.tile_gauss, tile_mask=b.tile_mask,
+                          n_pairs=b.n_pairs)
 
 
 @torch.no_grad()

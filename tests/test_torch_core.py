@@ -246,28 +246,99 @@ def test_project_gaussians_matches_jax():
 # ---------------------------------------------------------------- binning
 
 
-@pytest.mark.parametrize("case", ["roomy", "pair_overflow"])
-def test_compute_bins_tile_lists_equal(case):
+@pytest.mark.parametrize("case", ["roomy", "pair_overflow", "three_cameras"])
+def test_compute_bins_tile_lists_equal(case, monkeypatch):
     # make_scene draws continuous depths: no two splats share one, so the
     # (tile, depth) order has no ties and the lists must match exactly
     params, vm, K, w, h = scene_np(6, n=150, width=96, height=64)
     kw = dict(tile_capacity=32)
     if case == "pair_overflow":
         kw.update(pairs_per_gaussian=1, tile_capacity=8)
+    vms, Ks = vm[None], K[None]
+    if case == "three_cameras":
+        # two more cameras moved sideways; CPU tensors are binned camera by
+        # camera through the plain bin_gaussians, and no CUDA library loads
+        from gslam_tpu_torch.ops import cuda_build
+
+        def no_build(name):
+            raise AssertionError(f"CPU binning loaded the CUDA library {name}")
+
+        monkeypatch.setattr(cuda_build, "load", no_build)
+        vms = np.stack([vm, vm, vm])
+        vms[1, 0, 3] += 0.05
+        vms[2, 1, 3] -= 0.04
+        Ks = np.stack([K] * 3)
     jb = j_compute_bins(
         *(jnp.asarray(params[k]) for k in ("means", "quats", "log_scales", "alive")),
-        jnp.asarray(vm)[None], jnp.asarray(K)[None], w, h, JRenderConfig(**kw),
-        radius_scale=1.5)
-    tb = compute_bins(
-        *(torch.tensor(params[k]) for k in ("means", "quats", "log_scales",
-                                                "alive")),
-        T(vm)[None], T(K)[None], w, h, RenderConfig(**kw), radius_scale=1.5)
-    n_pairs = int(np.asarray(jb.n_pairs)[0])
+        jnp.asarray(vms), jnp.asarray(Ks), w, h, JRenderConfig(**kw), radius_scale=1.5)
+    fields = [torch.tensor(params[k]) for k in ("means", "quats", "log_scales", "alive")]
+    tb = compute_bins(*fields, T(vms), T(Ks), w, h, RenderConfig(**kw), radius_scale=1.5)
+    n_pairs = np.asarray(jb.n_pairs)
     if case == "pair_overflow":
-        assert n_pairs > 150, "the pair budget must overflow in this case"
-    assert int(tb.n_pairs[0]) == n_pairs
+        assert n_pairs[0] > 150, "the pair budget must overflow in this case"
+    np.testing.assert_array_equal(tb.n_pairs.numpy(), n_pairs)
     mask = np.asarray(jb.tile_mask)
     np.testing.assert_array_equal(tb.tile_mask.numpy(), mask)
     np.testing.assert_array_equal(
         np.where(mask, tb.tile_gauss.numpy(), -1),
         np.where(mask, np.asarray(jb.tile_gauss), -1))
+    if case == "three_cameras":
+        from gslam_tpu_torch.ops.binning import bin_gaussians
+        from gslam_tpu_torch.ops.rasterize import _bin_cameras, project_cameras
+
+        cfg = RenderConfig(**kw)
+        proj = project_cameras(fields[0], fields[1], torch.exp(fields[2]), fields[3],
+                               T(vms), T(Ks), w, h, cfg)
+        radii = proj.radii * 1.5
+        bins = _bin_cameras(proj.means2d, radii, proj.depths, proj.valid, w, h, cfg)
+        for c in range(3):
+            b = bin_gaussians(proj.means2d[c], radii[c], proj.depths[c], proj.valid[c],
+                              cfg.tile_size, -(-w // 16), -(-h // 16), 150 * 8,
+                              cfg.tile_capacity, cfg.max_span)
+            assert torch.equal(bins.tile_gauss[c], b.tile_gauss)
+            assert torch.equal(bins.tile_mask[c], b.tile_mask)
+            assert torch.equal(bins.n_pairs[c], b.n_pairs)
+
+
+# (cameras, splats, width, height, pairs a splat, tile capacity, max_span,
+#  mean radius in pixels, depth levels (0: continuous))
+TORCH_OPS_CASES = {
+    "roomy": (2, 300, 96, 64, 64, 256, 16, 6.0, 0),
+    "budget_overflow": (3, 300, 96, 64, 1, 256, 16, 20.0, 0),
+    "tiles_over_capacity": (2, 500, 96, 64, 64, 8, 16, 6.0, 0),
+    "max_span_clamped": (2, 200, 100, 70, 64, 256, 3, 50.0, 0),
+    "depth_ties": (2, 400, 96, 64, 16, 64, 16, 6.0, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(TORCH_OPS_CASES))
+def test_bin_cameras_torch_ops_equal_plain(case):
+    """bench_binning.py's sync-free torch-ops binning (the kernels' algorithm,
+    which chip_smoke.py times as their plain stages and bench_binning.py runs
+    in a cell) gives the plain bin_gaussians's lists camera by camera, bit
+    for bit, on culled and invalid splats, budget and tile overflow, clamped
+    footprints, a ragged grid and tied depths."""
+    from bench_binning import bin_cameras_torch
+
+    from gslam_tpu_torch.ops.binning import bin_gaussians
+
+    C, N, w, h, ppg, cap, span, radius, levels = TORCH_OPS_CASES[case]
+    g = torch.Generator().manual_seed(list(TORCH_OPS_CASES).index(case))
+    means = torch.rand((C, N, 2), generator=g) * torch.tensor([w + 40.0, h + 40.0]) - 20.0
+    radii = torch.empty((C, N)).exponential_(1.0 / radius, generator=g)
+    radii = torch.where(torch.rand((C, N), generator=g) < 0.1, 0.0, radii)
+    valid = (radii > 0) & (torch.rand((C, N), generator=g) >= 0.1)
+    means = torch.where((~valid & (torch.rand((C, N), generator=g) < 0.5))[..., None],
+                        float("nan"), means)
+    depths = (1.0 + torch.randint(0, levels, (C, N), generator=g).float() if levels
+              else 0.5 + 5.0 * torch.rand((C, N), generator=g))
+    args = (16, -(-w // 16), -(-h // 16), ppg * N, cap, span)
+    got = bin_cameras_torch(means, radii, depths, valid, *args)
+    plain = [bin_gaussians(means[c], radii[c], depths[c], valid[c], *args) for c in range(C)]
+    for name, field in zip(got._fields, got):
+        want = torch.stack([getattr(b, name) for b in plain])
+        assert field.dtype == want.dtype and torch.equal(field, want), name
+    if case == "budget_overflow":
+        assert bool((got.n_pairs > ppg * N).all())
+    if case == "tiles_over_capacity":
+        assert bool((got.tile_counts > cap).any())
