@@ -5,8 +5,9 @@
 
 Phases, one JSON line each:
   1. env: the card (nvidia-smi name and power limit), CUDA and nvcc
-     versions; builds the blend and binning kernels from
-     gslam_tpu_torch/csrc/ (`build_s`, `binning_build_s`).
+     versions; builds the blend, binning and track_rows kernels from
+     gslam_tpu_torch/csrc/ (`build_s`, `binning_build_s`,
+     `track_rows_build_s`).
   2. kernels: each CUDA kernel against its plain PyTorch version on real
      gathered rows of a 50k-splat map (T=300 tiles, M=512, and the 160x120
      pyramid level, T=80), with times from CUDA events (`ms`, one launch
@@ -17,7 +18,15 @@ Phases, one JSON line each:
      memory and resident blocks per SM; for blend_fwd the depth segments
      per tile that the card's rule gives. Also on one camera's rows of the
      mapping point's 100k-live map (T=300, M=512), the lists that mapping
-     feeds the kernels (phase 14 holds the 1M shape the same way).
+     feeds the kernels (phase 14 holds the 1M shape the same way). Then the
+     tracking projection's pair (csrc/track_rows.cu) on the 50k map's
+     gathered tiles (T=300, M=512): the rows bit for bit against
+     tracking_rows_plain, the viewmat gradient against float64 autograd by
+     the card tests' rule and bit for bit on a second call, each entry
+     point's ms, back-to-back ms, device ms by the profiler and share of
+     its bytes' bound, the plain versions' ms, and the evaluation's
+     projection with its gradient through the kernels and through the
+     plain rows and autograd (`track_rows`).
   2a. binning: ops/binning.py's bin_cameras (csrc/binning.cu) against the
      plain bin_gaussians camera by camera on the card, and against
      bench_binning.py's sync-free torch ops, bit for bit in every field, on
@@ -172,9 +181,10 @@ Phases, one JSON line each:
      profiled device busy time; launches of each igs frame equal to its
      evaluations, none in GN, 10 + 10 a mapping step, 1 + 0 a 1M render; the
      headline is the GN part's rate.
-Then one `kernels` line: blend_fwd, blend_bwd, bin_count, bin_emit and
-bin_tile_lists with their launches by path, ms, plain_ms and bound_ms (the
-binning kernels' at the 1M window, each path's shape under by_shape).
+Then one `kernels` line: blend_fwd, blend_bwd, bin_count, bin_emit,
+bin_tile_lists, track_rows_fwd and track_rows_bwd with their launches by
+path, ms, plain_ms and bound_ms (the binning kernels' at the 1M window,
+each path's shape under by_shape).
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 non-zero before it. Imports torch and the port only (no JAX).
 """
@@ -310,9 +320,12 @@ def phase_env():
     cuda_build.load("blend")
     t1 = time.perf_counter()
     cuda_build.load("binning")
+    t2 = time.perf_counter()
+    cuda_build.load("track_rows")
     emit("env", nvidia_smi=smi, torch=torch.__version__, torch_cuda=torch.version.cuda,
          nvcc=ver[-1] if ver else None, device=torch.cuda.get_device_name(0),
-         build_s=t1 - t0, binning_build_s=time.perf_counter() - t1)
+         build_s=t1 - t0, binning_build_s=t2 - t1,
+         track_rows_build_s=time.perf_counter() - t2)
     return smi
 
 
@@ -501,9 +514,102 @@ def phase_kernels(gmap, K, tcfg, point, smi):
     mapping = compare_and_time(*mapping_rows(point), gen)
     check(mapping["T"] == 300 and mapping["M"] == 512,
           f"unexpected mapping shape {mapping['T']}x{mapping['M']}")
+    rows = track_rows_vs_plain(gmap, K, tcfg.render, gen)
     emit("kernels_vs_plain", nvidia_smi=smi, full_res=full, pyramid_l1=half,
-         mapping_full_res=mapping, tolerance=TOLERANCE)
-    return {"tracking_full_res": full, "pyramid_l1": half, "mapping_full_res": mapping}
+         mapping_full_res=mapping, track_rows=rows, tolerance=TOLERANCE)
+    return {"tracking_full_res": full, "pyramid_l1": half, "mapping_full_res": mapping,
+            "track_rows": rows}
+
+
+# The track_rows kernels' bytes a slot: the forward reads 14 floats (means,
+# covariance, opacity, colour, beta) and writes 11 rows; the backward reads
+# the means, the covariance and 6 cotangents. Their operations are far
+# below the bytes' time (csrc/track_rows.cu).
+TRACK_ROWS_BYTES = {"track_rows_fwd": 4 * (14 + 11), "track_rows_bwd": 4 * 15}
+TRACK_ROWS_GRAD_RULE = ("rows bit for bit; viewmat gradient per entry |kernel - fp64| <= "
+                        "2 |plain32 autograd - fp64| + 1e-7 max|fp64|")
+
+
+def track_rows_vs_plain(gmap, K, cfg, gen):
+    """The tracking projection's kernels against their plain versions on
+    the 50k map's gathered tiles at the identity's neighbourhood (T=300,
+    M=512): rows bit for bit, the viewmat gradient by the card tests' rule
+    (two calls bit for bit), times by CUDA events. `pair_ms` is one
+    evaluation's projection and its gradient through the node (the
+    kernels), `plain_pair_ms` the same through tracking_rows_plain and
+    autograd, the path the kernels replace."""
+    import torch
+
+    from gslam_tpu_torch.core.transforms import se3_exp
+    from gslam_tpu_torch.ops import track_fused as tf
+    from gslam_tpu_torch.ops.rasterize import compute_bins
+
+    eye = torch.eye(4, device="cuda")
+    bins = compute_bins(gmap.means, gmap.quats, gmap.log_scales, gmap.alive, eye[None],
+                        K[None], W, H, cfg, radius_scale=1.5)
+    tg = tf.gather_tracking_tiles(gmap, bins)
+    T, _, M = tg.m3d.shape
+    check((T, M) == (300, 512), f"track_rows: unexpected shape {T}x{M}")
+    pose = se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.004, -0.002, 0.001], device="cuda"))
+    g = [torch.randn(T, c, M, device="cuda", generator=gen) / (W * H) for c in (2, 3, 5)]
+    args = (tg, pose, K, W, H, cfg)
+    with torch.no_grad():
+        got, want = tf.tracking_rows_cuda(*args), tf.tracking_rows_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("xy", "con", "op", "feat"), got, want):
+        check(torch.equal(a.view(torch.int32), b.contiguous().view(torch.int32)),
+              f"track_rows_fwd: {name} differs from the plain rows")
+    kern = [tf.tracking_rows_vjp_cuda(*args, *g) for _ in range(2)]
+    check(torch.equal(kern[0].view(torch.int32), kern[1].view(torch.int32)),
+          "track_rows_bwd: two calls differ")
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        vm = pose.detach().to(dt).requires_grad_(True)
+        tgd = tf.TileGather(*(x.to(dt) for x in tg))
+        rows = tf.tracking_rows_plain(tgd, vm, K.to(dt), W, H, cfg)
+        loss = sum((r * c.to(dt)).sum() for r, c in zip((rows[0], rows[1], rows[3]), g))
+        grads.append(torch.autograd.grad(loss, vm)[0].double())
+    p32, r64 = grads
+    err = (kern[0].double() - r64).abs()
+    limit = 2 * (p32 - r64).abs() + 1e-7 * r64.abs().max()
+    check(bool((err <= limit).all()), f"track_rows_bwd: error {err.max().item()} above "
+          f"the rule's limit {limit.min().item()}")
+
+    def pair(rows_fn):
+        vm = pose.clone().requires_grad_(True)
+        rows = rows_fn(*((tg, vm) + args[2:]))
+        loss = sum((r * c).sum() for r, c in zip((rows[0], rows[1], rows[3]), g))
+        return torch.autograd.grad(loss, vm)
+
+    res = {"T": T, "M": M, "max_abs_err_grad": float(err.max()),
+           "plain32_max_abs_err_grad": float((p32 - r64).abs().max()),
+           "err_over_limit": float((err / limit).max()),
+           "pair_ms": cuda_ms(lambda: pair(tf.tracking_rows)),
+           "plain_pair_ms": cuda_ms(lambda: pair(tf.tracking_rows_plain), reps=10)}
+    for name, kernel, plain in (
+            ("track_rows_fwd", lambda: tf.tracking_rows_cuda(*args),
+             lambda: tf.tracking_rows_plain(*args)),
+            ("track_rows_bwd", lambda: tf.tracking_rows_vjp_cuda(*args, *g),
+             lambda: tf.tracking_rows_vjp_plain(*args, *g))):
+        nbytes = TRACK_ROWS_BYTES[name] * T * M
+        bound = 1e3 * nbytes / PEAK_BYTES
+        with torch.no_grad():
+            b2b = cuda_ms_back_to_back(kernel)
+            # the host's ~0.1 ms a call outlasts the kernels, so the share is
+            # taken from their device time (track_rows_bwd: both kernels);
+            # the forward's 8.6 MB of inputs stay in the 50 MB L2 from call
+            # to call, as from evaluation to evaluation, so it can pass 1
+            kernels = device_ms_by_kernel(kernel, calls=20)
+            device_ms = sum(kernels.values())
+            res[name] = {"ms": cuda_ms(kernel), "ms_back_to_back": b2b,
+                         "device_ms": device_ms, "device_ms_by_kernel": kernels,
+                         "plain_ms": cuda_ms(plain, reps=10, warmup=1), "bytes": nbytes,
+                         "bound_ms": bound, "bound_by": "bytes", "share": bound / device_ms,
+                         "share_back_to_back": bound / b2b,
+                         "max_abs_err": 0.0 if name == "track_rows_fwd"
+                         else res["max_abs_err_grad"]}
+    res["rule"] = TRACK_ROWS_GRAD_RULE
+    return res
 
 
 # ------------------------------------------------------------------ binning
@@ -513,26 +619,31 @@ def phase_kernels(gmap, K, tcfg, point, smi):
 BIN_KERNELS = {"bin_count": "bin_count_kernel", "bin_emit": "bin_emit_kernel",
                "bin_tile_lists": "bin_tile_lists_kernel"}
 BIN_LAUNCHES = {}  # path: binning's launches, read just after the path ran
+ROWS_LAUNCHES = {}  # path: the track_rows entry points' launches, read with binning's
 
 
 def reset_launches():
-    """Set the blend and binning launch counters to 0."""
-    from gslam_tpu_torch.ops import binning, blend
+    """Set the blend, binning and track_rows launch counters to 0."""
+    from gslam_tpu_torch.ops import binning, blend, track_fused
 
     blend.reset_launches()
     binning.reset_launches()
+    track_fused.reset_launches()
 
 
-def binning_launches(path, add=False):
-    """Binning's launches since reset_launches, kept as `path`'s (added to
-    what it holds with add): every entry point the same count, one a call."""
-    from gslam_tpu_torch.ops import binning
+def path_launches(path, add=False):
+    """Binning's and the track_rows pair's launches since reset_launches,
+    kept as `path`'s (added to what it holds with add); returns binning's:
+    every binning entry point the same count, one a call."""
+    from gslam_tpu_torch.ops import binning, track_fused
 
-    got = dict(binning.launches)
+    for book, got in ((BIN_LAUNCHES, dict(binning.launches)),
+                      (ROWS_LAUNCHES, dict(track_fused.launches))):
+        if add and path in book:
+            got = {k: book[path][k] + n for k, n in got.items()}
+        book[path] = got
+    got = BIN_LAUNCHES[path]
     check(len(set(got.values())) == 1, f"{path}: binning's entry points launched {got}")
-    if add and path in BIN_LAUNCHES:
-        got = {k: BIN_LAUNCHES[path][k] + n for k, n in got.items()}
-    BIN_LAUNCHES[path] = got
     return got
 
 
@@ -800,8 +911,10 @@ def phase_tracking(gmap, K, tcfg, poses, gts, smi):
         est.append(r.pose)
         exposure = r.exposure
     launches = dict(blend.launches)
-    binning_launches("tracking")
+    path_launches("tracking")
     n_evals = sum(f["n_evals"] for f in frames)
+    check(ROWS_LAUNCHES["tracking"] == {"track_rows_fwd": n_evals, "track_rows_bwd": n_evals},
+          f"track_rows launches {ROWS_LAUNCHES['tracking']} != {n_evals} evals")
     final_err = frames[-1]["t_err_m"]
     emit("tracking", nvidia_smi=smi, frames=frames, sum_n_evals=n_evals,
          launches=launches, final_t_err_m=final_err,
@@ -988,7 +1101,7 @@ def phase_gn(gmap, K, tcfg, poses, gts, smi):
         finally:
             torch.cuda.set_sync_debug_mode("default")
             track.levenberg_marquardt = orig
-        binning_launches("gn", add=True)
+        path_launches("gn", add=True)
         runs[name] = dict(
             frames=frames, launches=dict(blend.launches),
             max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
@@ -1144,7 +1257,7 @@ def phase_mapping(point, smi):
         launched = dict(blend.launches)
         check(set(binning.launches.values()) == {1},
               f"step {i} binned {dict(binning.launches)}, expected one call")
-        binning_launches("mapping", add=True)
+        path_launches("mapping", add=True)
         for k in totals:
             totals[k] += launched[k]
         check(launched == {"blend_fwd": WINDOW, "blend_bwd": WINDOW},
@@ -1873,7 +1986,7 @@ def phase_slam(smi):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(blend.launches)
-    binning_launches("slam")
+    path_launches("slam")
     peak = torch.cuda.max_memory_allocated()
     frames = clock.split()
     rest = frames[1:]
@@ -2243,7 +2356,7 @@ def phase_actor(smi):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(blend.launches)
-    binning_launches("actor")
+    path_launches("actor")
     peak = torch.cuda.max_memory_allocated()
     frames = clock.split()
     rest = frames[1:]
@@ -2721,7 +2834,7 @@ def phase_sharded(smi):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(blend.launches)
-    binning_launches("sharded")
+    path_launches("sharded")
     peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
     frames = clock.split()
     n_evals = sum(f["evals"] for f in frames)
@@ -2854,7 +2967,7 @@ def phase_cli(smi):
                     if (run_dir / "trajectory.npy").is_file() else None)
             need = ("metrics.json", "args.txt", "trajectory.npy") + (
                 ("splats.npz",) if name == "actor" else ("telemetry.npz",))
-            binning_launches("cli", add=True)
+            path_launches("cli", add=True)
             runs[name] = dict(
                 wall_s=time.perf_counter() - t0, launches=dict(blend.launches),
                 frame_ms=frames, bootstrap_ms=frames[0],
@@ -2953,7 +3066,7 @@ def phase_onemillion(smi):
     reset_launches()
     detail, steps, state = bench.measure(point)
     launches = dict(blend.launches)
-    bin_launches = binning_launches("onemillion")
+    bin_launches = path_launches("onemillion")
     line = bench.result_line(detail, steps, w, h)
     print(json.dumps(line), flush=True)
 
@@ -3029,7 +3142,7 @@ def phase_scripts(smi):
     times["repro_f16_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = dict(blend.launches)
-    binning_launches("scripts")
+    path_launches("scripts")
 
     errs = np.array(oracle["per_frame_err_m"])
     objectives = [row[k][f] for row in rows[1:] for k in ("prior", "gt", "diverged", "tracked")
@@ -3081,7 +3194,7 @@ def phase_bench(smi):
         times[f"{section}_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = dict(blend.launches)
-    binning_launches("bench")
+    path_launches("bench")
     headline = bench_torch._summarize(parts)
     emit("bench", nvidia_smi=smi, launches=launches, **times,
          headline={k: v for k, v in headline.items() if k != "detail"})
@@ -3148,6 +3261,7 @@ def main() -> int:
 
     point = mapping_point()
     shapes = phase_kernels(gmap, K, tcfg, point, smi)
+    rows = shapes.pop("track_rows")
     full = shapes["tracking_full_res"]
     bin_rows = phase_binning(gmap, K, tcfg, point, smi)
     phase_reference()
@@ -3209,6 +3323,21 @@ def main() -> int:
     check(set(BIN_LAUNCHES) == set(by_path) | {"gn"} and all(
         p["bin_count"] > 0 for p in BIN_LAUNCHES.values()),
         f"binning launches by path {BIN_LAUNCHES}")
+    # the tracking projection's pair (it replaces no Pallas kernel: the JAX
+    # package projects in jnp); launches by path from ROWS_LAUNCHES; the
+    # numbers are the 50k map's tiles (T=300, M=512)
+    kernels += [dict(name=name, route="cuda", source="gslam_tpu_torch/csrc/track_rows.cu",
+                     replaces=None, launches=sum(p[name] for p in ROWS_LAUNCHES.values()),
+                     launches_by_path={k: p[name] for k, p in ROWS_LAUNCHES.items()},
+                     max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
+                     ms_back_to_back=rows[name]["ms_back_to_back"],
+                     plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
+                     bound_by="bytes", library_ms=None,
+                     by_shape={"tracking_full_res": {"T": rows["T"], "M": rows["M"]}})
+                for name in ("track_rows_fwd", "track_rows_bwd")]
+    check(ROWS_LAUNCHES["gn"]["track_rows_fwd"] == 0 == ROWS_LAUNCHES["mapping"]["track_rows_fwd"]
+          and ROWS_LAUNCHES["tracking"]["track_rows_fwd"] > 0,
+          f"track_rows launches by path {ROWS_LAUNCHES}")
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -1,6 +1,8 @@
 """Parity of the port's tracking slice with the JAX package on the CPU: the
 fused tracking render and its gradient, the losses, the Adam + L-BFGS loop
-and `track_frame` itself (flat and a 2-level pyramid).
+and `track_frame` itself (flat and a 2-level pyramid). Also the tracking
+projection's plain VJP (`tracking_rows_vjp_plain`, the chain its CUDA
+kernel computes) against autograd, on a scene and on edge cases.
 
 Inputs are made with numpy from a seed and fed to both packages.
 """
@@ -30,7 +32,10 @@ from gslam_tpu_torch.ops import losses as tl  # noqa: E402
 from gslam_tpu_torch.ops import track_fused as tf  # noqa: E402
 from gslam_tpu_torch.ops.rasterize import RenderConfig, compute_bins  # noqa: E402
 from gslam_tpu_torch.opt.lbfgs_compact import warmup_lbfgs_impl  # noqa: E402
+from gslam_tpu_torch.runtime import trace  # noqa: E402
 from gslam_tpu_torch.tracking import track as tt  # noqa: E402
+
+import test_torch_track_rows_cuda as rc  # noqa: E402
 
 from scene_utils import make_scene  # noqa: E402
 
@@ -111,6 +116,64 @@ def test_render_tracking_fused_and_x_gradient_match_jax():
     np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=1e-5)
     # float32 reductions over every (tile, slot) in another order
     np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), atol=1e-5, rtol=1e-3)
+
+
+def _scene_tiles():
+    """The parity test's small scene gathered at its base pose, a viewmat
+    near it, K and cotangents drawn from N(0, 1)."""
+    W, H = 88, 56
+    _d, K, _jmap, tmap = scene(21, 250, W, H)
+    base = T(pose_np([0.01, -0.02, 0.015], [0.02, -0.01, 0.03]))
+    cfg = RenderConfig(tile_capacity=CAP)
+    bins = compute_bins(tmap.means, tmap.quats, tmap.log_scales, tmap.alive, base[None],
+                        T(K)[None], W, H, cfg, radius_scale=1.5)
+    tg = tf.gather_tracking_tiles(tmap, bins)
+    gen = torch.Generator().manual_seed(23)
+    Tn, _, M = tg.m3d.shape
+    g = [torch.randn(Tn, c, M, generator=gen) for c in (2, 3, 5)]
+    vm = base @ T(pose_np([0.004, 0.002, -0.003], [0.003, 0.001, -0.002]))
+    return tg, g, vm, T(K), W, H, cfg
+
+
+@pytest.mark.parametrize("case", ("scene",) + rc.EDGE_CASES)
+def test_tracking_rows_vjp_plain_matches_autograd(case):
+    """tracking_rows_vjp_plain against autograd through tracking_rows_plain:
+    in float64 to rounding, in float32 by the card tests' rule against
+    float64 autograd; on the CPU the node gives the plain rows and autograd's
+    gradient through them bit for bit, and counts no kernel forward."""
+    if case == "scene":
+        tg, g, vm, K, W, H, cfg = _scene_tiles()
+    else:
+        (tg, g), vm, K = rc.edge_tiles(case), rc.edge_pose(), rc.edge_K()
+        W, H, cfg = rc.EDGE_W, rc.EDGE_H, rc.EDGE_CFG
+    in_depth, in_x, in_y, det_ok = tf._forward_masks(tg, vm, K, W, H, cfg)
+    edge = {"scene": in_depth, "ordinary": in_depth & in_x & in_y & det_ok,
+            "behind_near": ~in_depth, "beyond_far": ~in_depth, "outside_clamp": ~(in_x & in_y),
+            "det_nonpositive": ~det_ok, "invalid_slots": tg.opac[:, 0] == 0,
+            "all_edges": ~(in_depth & in_x & in_y & det_ok)}[case]
+    assert bool(edge.any())
+
+    p32, r64 = rc.viewmat_grads(tg, vm, K, W, H, cfg, g)
+    g64 = tf.tracking_rows_vjp_plain(rc.moved(tg, CPU, torch.float64), vm.double(),
+                                     K.double(), W, H, cfg, *(x.double() for x in g))
+    np.testing.assert_allclose(g64.numpy(), r64.numpy(), rtol=1e-9,
+                               atol=1e-12 * float(r64.abs().max()))
+    g32 = tf.tracking_rows_vjp_plain(tg, vm, K, W, H, cfg, *g)
+    assert g32.dtype == torch.float32
+    rc.assert_gradient_rule(g32, p32, r64, case)
+
+    before = trace.snapshot()["counters"].get("track.rows_kernel", 0)
+    v = vm.clone().requires_grad_(True)
+    rows = tf.tracking_rows(tg, v, K, W, H, cfg)
+    for a, b in zip(rows, tf.tracking_rows_plain(tg, vm, K, W, H, cfg)):
+        assert torch.equal(a, b)
+    assert not rows[2].requires_grad
+    loss = sum((r * c).sum() for r, c in zip((rows[0], rows[1], rows[3]), g))
+    (auto,) = torch.autograd.grad(loss, v)
+    assert torch.equal(auto, p32)
+    assert trace.snapshot()["counters"].get("track.rows_kernel", 0) == before
+    with pytest.raises(ValueError):
+        tf.tracking_rows(tg, v, K.clone().requires_grad_(True), W, H, cfg)
 
 
 # ---------------------------------------------------------------- losses
